@@ -10,10 +10,13 @@ same round on the CPU. Each phase prints one line; any failure raises
 and the script exits non-zero. It needs CUDA: without it, it prints no
 result and exits non-zero.
 
-Line protocol (stdout): one line per phase, then a JSON line
-{"kernels": [...]} with every kernel's launches on the main path, time,
-plain-version time and bound; then the card's name and power limit as
-nvidia-smi reports them; then, last, {"ok": true, "device": {...}}.
+Line protocol (stdout): one line per phase (the kernels phase times
+every main-path form warm and L2-cold; the slice phase counts launches
+per kernel and per form), then a JSON line {"kernels": [...]} with every
+kernel's launches on the main path and, at its most launched form, its
+device time warm and cold, plain-version time and bound; then the
+card's name and power limit as nvidia-smi reports them; then, last,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -27,13 +30,8 @@ import warnings
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# The 32-bit rate outside the tensor cores (67 TFLOP/s float32): the
-# quorum and ring kernels do integer compares and adds, no matrix work.
-OPS_PER_S = 67e12
-
 MAIN_GROUPS = 65536
-R, W, E = 3, 32, 4  # the bench config's widths
+R = 3  # the bench config's replica width
 SEED = 20261017
 
 
@@ -48,68 +46,13 @@ def smi(query: str) -> str:
     return out.stdout.strip()
 
 
-def stream_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean time per call of fn() on the stream, by CUDA events around
-    `iters` back-to-back calls after `warmup` calls. When the host
-    issues calls slower than the card runs them, this is the host's
-    time per call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-def _device_us(event) -> float:
-    t = getattr(event, "self_device_time_total", None)
-    return getattr(event, "self_cuda_time_total", 0) if t is None else t
-
-
-def kernel_events(prof):
-    """The profiler's per-name averages of work that ran on the card."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and _device_us(e) > 0]
-
-
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call of fn(): the time of every kernel it
-    launches, summed (CUPTI through torch.profiler), over `iters` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = kernel_events(prof)
-    if not events:
-        raise RuntimeError("the profiler recorded no device time")
-    return sum(_device_us(e) for e in events) / iters / 1e3
-
-
-def timings(call, plain) -> dict:
-    return {"ms": device_ms(call), "plain_ms": device_ms(plain),
-            "call_ms": stream_ms(call), "plain_call_ms": stream_ms(plain)}
-
-
-def bound_ms(nbytes: float, ops: float) -> "tuple[float, str]":
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def assert_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
-    """Exact equality of int32 protocol values; returns the largest
+def assert_equal(name: str, got, want) -> int:
+    """Exact equality of int32 protocol values (a tensor, or a tuple of
+    them for the fused quorum form); returns the largest
     |kernel - plain|, which the check holds at 0."""
+    if isinstance(got, tuple):
+        return max(assert_equal(f"{name} [{j}]", g, w)
+                   for j, (g, w) in enumerate(zip(got, want, strict=True)))
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
                              f"{want.dtype}{tuple(want.shape)}")
@@ -123,183 +66,75 @@ def assert_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
 # -- phase: kernels ------------------------------------------------------------
 
 
-def quorum_inputs(n: int, r: int, gen: torch.Generator, dev):
-    """Seeded [N, R] quorum inputs with edge rows: an empty config, an
-    empty joint config, a joint row, a single voter."""
-    def rand(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
-
-    match = torch.randint(0, 1 << 20, (n, r), generator=gen, device=dev,
-                          dtype=torch.int32)
-    voter = rand(n, r) < 0.8
-    voter_out = rand(n, r) < 0.4
-    in_joint = rand(n) < 0.5
-    votes = torch.randint(-1, 2, (n, r), generator=gen, device=dev,
-                          dtype=torch.int32)
-    voter[0] = False
-    in_joint[0] = False
-    voter[1] = False
-    voter_out[1] = False
-    in_joint[1] = True
-    in_joint[2] = True
-    voter[3] = False
-    voter[3, 0] = True
-    in_joint[3] = False
-    return match, voter, voter_out, in_joint, votes
-
-
-def term_inputs(n: int, w: int, k: int, gen: torch.Generator, dev):
-    """Seeded ring-lookup inputs: indexes below, at, inside and above
-    each ring, with edge rows for a negative index and a wrapped ring."""
-    def randint(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev,
-                             dtype=torch.int32)
-
-    log_term = randint(1, 1 << 16, (n, w))
-    snap_index = randint(0, 1 << 20, (n,))
-    snap_term = randint(1, 1 << 16, (n,))
-    last = snap_index + randint(0, w + 1, (n,))
-    idx = snap_index.unsqueeze(-1) + randint(-3, w + 3, (n, k))
-    idx[0] = snap_index[0]          # at the floor
-    idx[1] = snap_index[1] - 1      # below it
-    idx[2] = last[2] + 1            # above the ring
-    idx[3] = -5                     # negative
-    snap_index[4] = -9              # a negative index inside the ring
-    last[4] = 2
-    idx[4] = -3
-    return log_term, snap_index, snap_term, last, idx if k > 1 else idx[:, 0]
-
-
-def check_kernels(dev) -> dict:
-    """Every kernel against its plain version: exact equality at the main
-    path's shapes and on edge rows, R in {1,3,5,7}, all three quorum
-    modes, the [N, R, R] vote tallies and every index width the round
-    gives the ring lookup; times at the main path's shapes. Returns the
-    JSON rows of the kernels line (launches filled in later) and prints
-    the variants."""
+def check_kernels(dev) -> "tuple[list, dict]":
+    """Every kernel against its plain version, exactly: the quorum kernel
+    in all three modes at every compiled R (1, 3, 5, 7), then every form
+    the main path gives either kernel (tools/kernel_times: the quorum's
+    modes and its [N, R, R] ack-prefix tallies with unexpanded masks at
+    R=3, the ring lookup at K in {1, 3, 4, 12}), each timed warm and
+    L2-cold at N = 196,608 rows. Returns the timed forms and each
+    kernel's largest |kernel - plain|, and prints the forms."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
-    from etcd_tpu_torch.batched import kernels as K
+    from etcd_tpu_torch.tools import kernel_times as kt
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n = MAIN_GROUPS * R
-    rows = {}
-    variants = []
-    err_b1 = err_b2 = 0
-
-    # B1: joint quorum.
+    err = {"quorum_commit_vote": 0, "term_at_batch": 0}
     for r in (1, 3, 5, 7):
-        match, voter, voter_out, in_joint, votes = quorum_inputs(
+        match, voter, voter_out, in_joint, votes = kt.quorum_inputs(
             n, r, gen, dev)
         want_c, want_v = hk.quorum_commit_vote_ref(
             match, voter, voter_out, in_joint, votes)
         got_c, got_v = hk.quorum_commit_vote(
             match, voter, voter_out, in_joint, votes)
-        err_b1 = max(
-            err_b1,
+        err["quorum_commit_vote"] = max(
+            err["quorum_commit_vote"],
             assert_equal(f"quorum both r={r} commit", got_c, want_c),
             assert_equal(f"quorum both r={r} vote", got_v, want_v),
             assert_equal(f"quorum commit r={r}", hk.quorum_commit(
                 match, voter, voter_out, in_joint), want_c),
             assert_equal(f"quorum vote r={r}", hk.quorum_vote(
                 votes, voter, voter_out, in_joint), want_v))
-        if r != R:
-            continue
-        joint = in_joint.float().mean().item()
-        for mode, call, ref, nbytes, ops in (
-            ("commit",
-             lambda: hk.quorum_commit(match, voter, voter_out, in_joint),
-             lambda: hk.quorum_commit_ref(match, voter, voter_out, in_joint),
-             n * (4 * r + 2 * r + 1 + 4),
-             n * (1 + joint) * (r + r * (2 * r + 2))),
-            ("vote",
-             lambda: hk.quorum_vote(votes, voter, voter_out, in_joint),
-             lambda: hk.quorum_vote_ref(votes, voter, voter_out, in_joint),
-             n * (4 * r + 2 * r + 1 + 4),
-             n * (1 + joint) * 4 * r),
-            ("both",
-             lambda: hk.quorum_commit_vote(match, voter, voter_out,
-                                           in_joint, votes),
-             lambda: hk.quorum_commit_vote_ref(match, voter, voter_out,
-                                               in_joint, votes),
-             n * (8 * r + 2 * r + 1 + 8),
-             n * (1 + joint) * (r + r * (2 * r + 2) + 4 * r)),
-        ):
-            tm = timings(call, ref)
-            b_ms, b_by = bound_ms(nbytes, ops)
-            variants.append({"kernel": "quorum_commit_vote", "mode": mode,
-                             "shape": [n, r], **tm, "bound_ms": b_ms,
-                             "bound_by": b_by})
-            if mode == "commit":  # the round's most launched form
-                rows["quorum_commit_vote"] = {
-                    "name": "quorum_commit_vote", "route": "cuda",
-                    "source": "etcd_tpu_torch/batched/csrc/quorum_ring.cu",
-                    "replaces": "etcd_tpu/batched/pallas_kernels.py:90",
-                    "ms": tm["ms"],
-                    "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None}
-
-    # The heartbeat-response lane's tallies as the round builds them:
-    # [N, R, R] ack prefixes (votes 1 or -1) through
-    # kernels.joint_vote_result, which flattens them to N*R rows with
-    # each instance's masks repeated for its R prefixes.
-    _, voter, voter_out, in_joint, _ = quorum_inputs(n, R, gen, dev)
-    prefix = torch.rand((n, R, R), generator=gen, device=dev) < 0.5
-    votes = torch.where(prefix, 1, -1).to(torch.int32)
-    masks = [K.per_tally(x, votes) for x in (voter, voter_out, in_joint)]
-    call = lambda: K.joint_vote_result(votes, voter, voter_out, in_joint)  # noqa: E731
-    plain = lambda: K.joint_vote_result_plain(votes, *masks)  # noqa: E731
-    err_b1 = max(err_b1, assert_equal("quorum vote [N, R, R] prefixes",
-                                      call(), plain()))
-    joint = in_joint.float().mean().item()
-    b_ms, b_by = bound_ms(n * (4 * R * R + 2 * R + 1 + 4 * R),
-                          n * R * (1 + joint) * 4 * R)
-    variants.append({"kernel": "quorum_commit_vote", "mode": "vote",
-                     "shape": [n, R, R], **timings(call, plain),
-                     "bound_ms": b_ms, "bound_by": b_by})
-
-    # B2: ring-term lookup, at the round's index widths: [N] (K=1),
-    # _emit's [N, R] prev indexes (K=3), _handle_append's [N, E] entry
-    # indexes (K=4) and _emit's [N, R*E] entries (K=12).
-    for k in (1, R, E, R * E):
-        log_term, snap_index, snap_term, last, idx = term_inputs(
-            n, W, k, gen, dev)
-        args = (log_term, snap_index, snap_term, last, idx)
-        err_b2 = max(err_b2, assert_equal(
-            f"term_at k={k}", hk.term_at_batch(*args),
-            hk.term_at_batch_ref(*args)))
-        q = idx.view(n, -1)
-        ring = (q > snap_index.unsqueeze(-1)) & (q <= last.unsqueeze(-1))
-        # Distinct ring slots this data reads (the bytes it must move).
-        slots = torch.where(q >= 0, q % W, 0).long() + W * torch.arange(
-            n, device=dev).unsqueeze(-1)
-        ring_reads = torch.unique(slots[ring]).numel()
-        nbytes = 4 * (3 * n + 2 * q.numel() + ring_reads)
-        tm = timings(lambda: hk.term_at_batch(*args),
-                     lambda: hk.term_at_batch_ref(*args))
-        b_ms, b_by = bound_ms(nbytes, 8 * q.numel())
-        variants.append({"kernel": "term_at_batch", "shape": list(q.shape),
-                         **tm, "bound_ms": b_ms, "bound_by": b_by})
-        if k == 1:  # the round's most launched form
-            rows["term_at_batch"] = {
-                "name": "term_at_batch", "route": "cuda",
-                "source": "etcd_tpu_torch/batched/csrc/quorum_ring.cu",
-                "replaces": "etcd_tpu/batched/pallas_kernels.py:142",
-                "ms": tm["ms"],
-                "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None}
-    rows["quorum_commit_vote"]["max_abs_err"] = err_b1
-    rows["term_at_batch"]["max_abs_err"] = err_b2
+    variants = []
+    for form in kt.main_path_forms(dev):
+        name = form["key"].split()[0]
+        err[name] = max(err[name], assert_equal(form["key"], form["call"](),
+                                                form["plain"]()))
+        variants.append(kt.time_form(form))
     log("kernels", equal=True, variants=variants)
+    return variants, err
+
+
+def kernel_rows(variants: list, err: dict, launches: dict,
+                forms: dict) -> list:
+    """The kernels line: each kernel at its most launched form on the
+    main path."""
+    rows = []
+    for name, line in (("quorum_commit_vote", 90), ("term_at_batch", 142)):
+        top = max((v for v in variants if v["form"].startswith(name + " ")),
+                  key=lambda v: forms.get(v["form"], 0))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "etcd_tpu_torch/batched/csrc/quorum_ring.cu",
+            "replaces": f"etcd_tpu/batched/pallas_kernels.py:{line}",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": top["ms"], "cold_ms": top["cold_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "form": top["form"]})
     return rows
 
 
 # -- phase: slice (the main path) ----------------------------------------------
 
 
-def run_slice(dev) -> dict:
+def run_slice(dev) -> "tuple[dict, dict]":
+    """The main path, with every launch count set to 0 just before it:
+    returns the launches per kernel and per (kernel, form)."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
     from etcd_tpu_torch.tools.benchlib import (
         make_bench_engine, measure_commit_p50, measure_rate)
+    from etcd_tpu_torch.tools.kernel_times import _device_us, profile_kernels
 
     hk.reset_launches()
     t0 = time.perf_counter()
@@ -314,6 +149,7 @@ def run_slice(dev) -> dict:
     after = eng.commits()
     p50s = [measure_commit_p50(eng) for _ in range(5)]
     launches = dict(hk.LAUNCHES)
+    forms = dict(hk.FORM_LAUNCHES)
     rounds = eng.rounds
     if not (after[:, 0] > before[:, 0]).all():
         raise AssertionError("commits did not advance in every group")
@@ -329,25 +165,20 @@ def run_slice(dev) -> dict:
         commit_p50_runs=[{"ms": ms, "rounds": r} for ms, r in p50s],
         launches=launches,
         launches_per_round={k: v / rounds for k, v in launches.items()},
+        form_launches_per_round={k: v / rounds for k, v in forms.items()},
         min_commit=int(after.min()), max_commit=int(after.max()))
 
     # Where a round's time goes: wall time per round on the host clock
     # (no profiler), then device time by kernel name over as many rounds
     # (CUPTI through torch.profiler, CUDA activity only).
-    from torch.profiler import ProfilerActivity, profile
-
     prof_rounds = 8
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run_rounds(prof_rounds, tick=True, propose_n=props)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / prof_rounds
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.run_rounds(prof_rounds, tick=True, propose_n=props)
-        torch.cuda.synchronize()
-    events = kernel_events(prof)
-    if not events:
-        raise RuntimeError("the profiler recorded no device time")
+    events = profile_kernels(
+        lambda: eng.run_rounds(prof_rounds, tick=True, propose_n=props))
     # Host syncs inside the closed loop (each one stalls the host until
     # the card drains): counted by PyTorch's sync debug mode.
     with warnings.catch_warnings(record=True) as caught:
@@ -371,7 +202,7 @@ def run_slice(dev) -> dict:
                       e.count / prof_rounds,
                       "device_ms_per_round": _device_us(e) / 1e3 / prof_rounds}
                      for e in sorted(events, key=lambda e: -_device_us(e))[:12]])
-    return launches
+    return launches, forms
 
 
 # -- phase: parity (CUDA round vs CPU round) -----------------------------------
@@ -443,6 +274,7 @@ def run_parity(dev, plain_dev=torch.device("cpu")) -> None:
         st = sides["plain"][0]
         log("parity", config=label, groups=groups, rounds=rounds,
             equal=True, launches=dict(hk.LAUNCHES),
+            form_launches=dict(hk.FORM_LAUNCHES),
             leaders=int((st.role == 2).sum()),
             max_commit=int(st.commit.max()), max_term=int(st.term.max()))
 
@@ -462,12 +294,11 @@ def main() -> int:
         device=torch.cuda.get_device_name(0),
         build_s=time.perf_counter() - t0, library=hk.library_path().name)
 
-    rows = check_kernels(dev)
-    launches = run_slice(dev)
+    variants, err = check_kernels(dev)
+    launches, forms = run_slice(dev)
     run_parity(dev)
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-    print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))
+    print(json.dumps({"kernels": kernel_rows(variants, err, launches,
+                                             forms)}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

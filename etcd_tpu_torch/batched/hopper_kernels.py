@@ -8,20 +8,25 @@ Ports ``etcd_tpu/batched/pallas_kernels.py``:
   (ref: raft/quorum/majority.go:126-210, joint.go:49-75), in the quorum
   support form: the largest masked match value supported by >= n//2+1
   voters, an O(R²) loop with no sort (the plain form sorts; both pick
-  the same index).
+  the same index). ``tallies`` B lets one launch hold B vote tallies
+  per instance against the instance's unexpanded masks.
 * ``term_at_batch`` — the term of a log index read from the [N, W] term
   ring (ref: the zero-term-outside-bounds contract of raft/log.go
   term()), for one index per instance ([N]) or K of them ([N, K]).
 
-The CUDA source is ``csrc/quorum_ring.cu``. It is compiled with nvcc for
-sm_90a into a shared library with a plain C interface the first time a
-kernel runs on a CUDA tensor (rebuilt when the source changes) and
-loaded with ctypes. On a CPU tensor each wrapper runs its plain version;
-on a CUDA tensor it launches the kernel or raises.
+The CUDA source is ``csrc/quorum_ring.cu`` (its head note gives the
+design). It is compiled with nvcc for sm_90a into a shared library with
+a plain C interface the first time a kernel runs on a CUDA tensor
+(rebuilt when the source changes) and loaded with ctypes.
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor
+it launches the kernel on PyTorch's current stream or raises. The
+kernels allocate nothing and never synchronize, so a CUDA graph can
+capture them.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -46,16 +51,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 MODE_COMMIT, MODE_VOTE = 1, 2
+MODE_NAMES = {MODE_COMMIT: "commit", MODE_VOTE: "vote",
+              MODE_COMMIT | MODE_VOTE: "both"}
+# The kernels index in 32 bits.
+MAX_ELEMS = 2**31 - 1
 
-# Kernel launches per wrapper since the last reset_launches(): a count
-# is added where the kernel is launched and nowhere else, so a run can
-# show that its CUDA path went through the kernels.
+# Kernel launches per wrapper since the last reset_launches(), and per
+# (kernel, form): a count is added where the kernel is launched and
+# nowhere else, so a run can show that its CUDA path went through the
+# kernels, and with which shapes.
 LAUNCHES = {"quorum_commit_vote": 0, "term_at_batch": 0}
+FORM_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    FORM_LAUNCHES.clear()
 
 
 # -- build -------------------------------------------------------------------
@@ -98,22 +110,29 @@ def load_library() -> ctypes.CDLL:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     lib = ctypes.CDLL(str(path))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.quorum_commit_vote_launch.argtypes = [
-        i32, p, p, p, p, p, p, p, i64, i32, p]
+        i32, p, p, p, p, p, p, p, i32, i32, i32, p]
     lib.quorum_commit_vote_launch.restype = i32
-    lib.term_at_batch_launch.argtypes = [p, p, p, p, p, p, i64, i32, i32, p]
+    lib.term_at_batch_launch.argtypes = [p, p, p, p, p, p, i32, i32, i32, p]
     lib.term_at_batch_launch.restype = i32
     return lib
 
 
-# -- argument checks ---------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _launchers():
+    """The library's two launch functions, resolved once."""
+    lib = load_library()
+    return lib.quorum_commit_vote_launch, lib.term_at_batch_launch
+
+
+# -- argument checks and the launch ------------------------------------------------
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
     if x.dtype != dtype:
         raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
+    if x.shape != shape:
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
                          f"{tuple(shape)}")
     if x.device != device:
@@ -126,7 +145,14 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _raise_on(err: int, kernel: str) -> None:
+def _launch(kernel: str, fn, dev: torch.device, *args) -> None:
+    """Call launch function `fn` with `args` and the raw handle of
+    PyTorch's current stream on `dev`, switching device only when `dev`
+    is not the current one; raise on a launch error."""
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(kernel, fn, dev, *args)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
@@ -140,29 +166,35 @@ def quorum_commit_vote_ref(match, voter, voter_out, in_joint, votes):
             quorum_vote_ref(votes, voter, voter_out, in_joint))
 
 
-def _quorum_launch(mode, match, voter, voter_out, in_joint, votes):
-    """Launch the quorum kernel for the halves that `mode` asks for;
-    returns (commit or None, vres or None)."""
-    rows = voter.shape
+def _quorum_launch(mode, match, voter, voter_out, in_joint, votes,
+                   tallies=1):
+    """Launch the quorum kernel for the halves that `mode` asks for, over
+    N*tallies rows of match/votes against N rows of masks; returns
+    (commit or None, vres or None)."""
+    shape = voter.shape
     dev = voter.device
-    _check("voter", voter, torch.bool, rows, dev)
-    _check("voter_out", voter_out, torch.bool, rows, dev)
-    _check("in_joint", in_joint, torch.bool, rows[:1], dev)
+    n, r = shape
+    rows = n * tallies
+    if rows * r > MAX_ELEMS:
+        raise ValueError(f"quorum: {rows} x {r} elements exceed the "
+                         "kernel's 32-bit indexing")
+    _check("voter", voter, torch.bool, shape, dev)
+    _check("voter_out", voter_out, torch.bool, shape, dev)
+    _check("in_joint", in_joint, torch.bool, shape[:1], dev)
+    row_shape = torch.Size((rows, r))
     commit = vres = None
     if mode & MODE_COMMIT:
-        _check("match", match, I32, rows, dev)
-        commit = torch.empty(rows[:1], dtype=I32, device=dev)
+        _check("match", match, I32, row_shape, dev)
+        commit = torch.empty(rows, dtype=I32, device=dev)
     if mode & MODE_VOTE:
-        _check("votes", votes, I32, rows, dev)
-        vres = torch.empty(rows[:1], dtype=I32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.quorum_commit_vote_launch(
-            mode, _ptr(match), voter.data_ptr(), voter_out.data_ptr(),
-            in_joint.data_ptr(), _ptr(votes), _ptr(commit), _ptr(vres),
-            rows[0], rows[1], torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "quorum_commit_vote")
+        _check("votes", votes, I32, row_shape, dev)
+        vres = torch.empty(rows, dtype=I32, device=dev)
+    _launch("quorum_commit_vote", _launchers()[0], dev, mode, _ptr(match),
+            voter.data_ptr(), voter_out.data_ptr(), in_joint.data_ptr(),
+            _ptr(votes), _ptr(commit), _ptr(vres), rows, tallies, r)
     LAUNCHES["quorum_commit_vote"] += 1
+    FORM_LAUNCHES[f"quorum_commit_vote {MODE_NAMES[mode]} R={r} "
+                  f"B={tallies}"] += 1
     return commit, vres
 
 
@@ -187,12 +219,15 @@ def quorum_commit(match, voter, voter_out, in_joint):
                           None)[0]
 
 
-def quorum_vote(votes, voter, voter_out, in_joint):
-    """The vote half of quorum_commit_vote: [N] joint vote result."""
+def quorum_vote(votes, voter, voter_out, in_joint, tallies=1):
+    """The vote half of quorum_commit_vote: [N*B] joint vote results of
+    votes [N*B, R], B = `tallies` per instance, instance i's tallies
+    in rows i*B .. i*B+B-1, each held to that instance's voter/voter_out
+    [N, R] and in_joint [N]."""
     if not voter.is_cuda:
-        return quorum_vote_ref(votes, voter, voter_out, in_joint)
+        return quorum_vote_ref(votes, voter, voter_out, in_joint, tallies)
     return _quorum_launch(MODE_VOTE, None, voter, voter_out, in_joint,
-                          votes)[1]
+                          votes, tallies)[1]
 
 
 # -- B2: ring-term lookup ------------------------------------------------------
@@ -206,24 +241,25 @@ def term_at_batch(log_term, snap_index, snap_term, last, idx):
     [N, K] i32. Returns the terms in idx's shape, i32."""
     if not log_term.is_cuda:
         return term_at_batch_ref(log_term, snap_index, snap_term, last, idx)
-    n, w = log_term.shape
+    shape = log_term.shape
+    n, w = shape
     dev = log_term.device
-    _check("log_term", log_term, I32, (n, w), dev)
-    for name, x in (("snap_index", snap_index), ("snap_term", snap_term),
-                    ("last", last)):
-        _check(name, x, I32, (n,), dev)
     if idx.dim() not in (1, 2) or idx.shape[0] != n:
         raise ValueError(f"idx: shape {tuple(idx.shape)}, expected ({n},) "
                          f"or ({n}, K)")
-    _check("idx", idx, I32, idx.shape, dev)
     k = idx.shape[1] if idx.dim() == 2 else 1
+    if n * max(k, w) > MAX_ELEMS:
+        raise ValueError(f"term_at_batch: {n} x {max(k, w)} elements "
+                         "exceed the kernel's 32-bit indexing")
+    _check("log_term", log_term, I32, shape, dev)
+    for name, x in (("snap_index", snap_index), ("snap_term", snap_term),
+                    ("last", last)):
+        _check(name, x, I32, shape[:1], dev)
+    _check("idx", idx, I32, idx.shape, dev)
     out = torch.empty(idx.shape, dtype=I32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.term_at_batch_launch(
-            log_term.data_ptr(), snap_index.data_ptr(), snap_term.data_ptr(),
-            last.data_ptr(), idx.data_ptr(), out.data_ptr(), n, k, w,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "term_at_batch")
+    _launch("term_at_batch", _launchers()[1], dev, log_term.data_ptr(),
+            snap_index.data_ptr(), snap_term.data_ptr(), last.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), n, k, w)
     LAUNCHES["term_at_batch"] += 1
+    FORM_LAUNCHES[f"term_at_batch K={k} W={w}"] += 1
     return out

@@ -84,12 +84,17 @@ def joint_committed_plain(match: torch.Tensor, voter: torch.Tensor,
 
 
 def joint_vote_result_plain(votes: torch.Tensor, voter: torch.Tensor,
-                            voter_out: torch.Tensor,
-                            in_joint: torch.Tensor) -> torch.Tensor:
+                            voter_out: torch.Tensor, in_joint: torch.Tensor,
+                            tallies: int = 1) -> torch.Tensor:
     """Joint vote result (ref: raft/quorum/joint.go:61-75): lost if
     either half lost, pending if either half pending, else won.
-    votes/voter/voter_out [..., R], in_joint [...] → [...]. The plain
-    form of the quorum kernel's vote half."""
+    votes [N*B, R] holds B = `tallies` tallies per instance (rows
+    i*B .. i*B+B-1 for instance i), each held to that instance's
+    voter/voter_out [N, R] and in_joint [N] → [N*B]. The plain form of
+    the quorum kernel's vote half."""
+    if tallies > 1:
+        voter, voter_out, in_joint = (x.repeat_interleave(tallies, 0)
+                                      for x in (voter, voter_out, in_joint))
     a = vote_result(votes, voter)
     b = torch.where(in_joint, vote_result(votes, voter_out), VOTE_WON)
     lost = (a == VOTE_LOST) | (b == VOTE_LOST)
@@ -116,14 +121,23 @@ def term_at_plain(log_term: torch.Tensor, snap_index: torch.Tensor,
     return out.view(i.shape)
 
 
-def per_tally(x: torch.Tensor, votes: torch.Tensor) -> torch.Tensor:
-    """An instance's [N, R] mask or [N] flag, repeated for each tally of
-    votes ([N, B..., R]): the masks and flags the tallies are held to,
-    in votes' leading shape."""
-    nb = votes.dim() - 2
-    x = x.view(x.shape[:1] + (1,) * nb + x.shape[1:])
-    return x.expand(votes.shape if x.dim() == votes.dim()
-                    else votes.shape[:-1])
+# The round's sites. Their arguments are whole state fields and results
+# of the round's own ops, contiguous by construction, so no site copies;
+# on the card a strided argument makes the wrapper raise (a later site
+# that passes a view must copy it). What each site is given, in step.py:
+# - joint_committed: st.match [N, R], st.voter, st.voter_out,
+#   st.in_joint.
+# - joint_vote_result: st.votes or a torch.where of it, the ack prefixes
+#   [N, R, R] of the heartbeat-response lane, an [N, R] activity or ack
+#   mask as int32; with st.voter, st.voter_out, st.in_joint.
+# - term_at: st.log_term, st.snap_index, st.snap_term, st.last and [N],
+#   [N, R], [N, E] or [N, R, E] indexes that the round computes (for the
+#   request handlers, fields of the gathered lane winner, not the
+#   strided lane view).
+# tests/test_torch_kernels.py holds every site's arguments contiguous
+# over a seeded schedule of both parity configs on the CPU, and the
+# parity phase of chip_smoke.py runs those configs on the card, where a
+# strided argument would raise.
 
 
 def joint_committed(match: torch.Tensor, voter: torch.Tensor,
@@ -133,8 +147,7 @@ def joint_committed(match: torch.Tensor, voter: torch.Tensor,
     in_joint [N] → [N], through the quorum kernel's wrapper."""
     from .hopper_kernels import quorum_commit
 
-    return quorum_commit(match.contiguous(), voter.contiguous(),
-                         voter_out.contiguous(), in_joint.contiguous())
+    return quorum_commit(match, voter, voter_out, in_joint)
 
 
 def joint_vote_result(votes: torch.Tensor, voter: torch.Tensor,
@@ -145,13 +158,12 @@ def joint_vote_result(votes: torch.Tensor, voter: torch.Tensor,
     votes is [N, R] or [N, B..., R] (several tallies per instance, such
     as the ack prefixes of the heartbeat-response lane); voter/voter_out
     [N, R] and in_joint [N] are shared by an instance's tallies, which
-    the wrapper sees as one row each."""
+    go to one launch as rows of [N*B, R] with the masks unexpanded."""
     from .hopper_kernels import quorum_vote
 
-    r = votes.shape[-1]
-    rows = lambda x: per_tally(x, votes).reshape(-1, *x.shape[1:])  # noqa: E731
-    out = quorum_vote(votes.reshape(-1, r).contiguous(), rows(voter),
-                      rows(voter_out), rows(in_joint))
+    tallies = math.prod(votes.shape[1:-1])
+    out = quorum_vote(votes.reshape(-1, votes.shape[-1]), voter, voter_out,
+                      in_joint, tallies)
     return out.view(votes.shape[:-1])
 
 
@@ -165,9 +177,7 @@ def term_at(log_term: torch.Tensor, snap_index: torch.Tensor,
 
     n = i.shape[0]
     idx = i.reshape(n, math.prod(i.shape[1:])) if i.dim() > 1 else i
-    out = term_at_batch(log_term.contiguous(), snap_index.contiguous(),
-                        snap_term.contiguous(), last.contiguous(),
-                        idx.contiguous())
+    out = term_at_batch(log_term, snap_index, snap_term, last, idx)
     return out.view(i.shape)
 
 

@@ -1,0 +1,345 @@
+"""Times of the Hopper kernels at the main path's forms, and a same-call
+A/B of two checkouts.
+
+Each form is one kernel call as the round makes it (through the site
+functions of ``batched/kernels.py``, and the fused quorum form through
+its wrapper) at G=65,536 groups of the bench config (N = 196,608
+rows), on seeded inputs. Per form: device time warm (the inputs in L2
+from the previous call) and L2-cold (the 50 MB L2 overwritten before
+each call, as the round finds these tensors), the time per call of
+back-to-back calls on the stream, and the bound. chip_smoke.py times
+its kernels with these functions.
+
+    python3 -m etcd_tpu_torch.tools.kernel_times OLD NEW
+
+runs the forms of checkout OLD, then NEW, NEW, OLD, each in a process
+of its own on one GPU, holds every result equal to this checkout's
+plain forms, and prints one JSON line per run, the card's name and
+power limit, and last a JSON line with each side's mean of its two
+runs.
+"""
+
+from __future__ import annotations
+
+import functools
+import importlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ..batched import hopper_kernels as hk_plain
+from ..batched import kernels as k_plain
+from .bench import device_label
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# The 32-bit rate outside the tensor cores (67 TFLOP/s float32): the
+# quorum and ring kernels do integer compares and adds, no matrix work.
+OPS_PER_S = 67e12
+L2_BYTES = 50 * 2**20  # H100
+
+GROUPS = 65536
+R, W, E = 3, 32, 4  # the bench config's widths
+SEED = 20261017
+
+
+# -- timers ----------------------------------------------------------------------
+
+
+def _device_us(event) -> float:
+    t = getattr(event, "self_device_time_total", None)
+    return getattr(event, "self_cuda_time_total", 0) if t is None else t
+
+
+def kernel_events(prof):
+    """The profiler's per-name averages of work that ran on the card."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _device_us(e) > 0]
+
+
+def profile_kernels(fn, iters: int = 1, attempts: int = 3):
+    """kernel_events of `iters` calls of fn() (CUPTI through
+    torch.profiler, CUDA activity only). A session that records no
+    device work is taken again, up to `attempts` times: the first
+    session of a process has been seen to come back empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = kernel_events(prof)
+        if events:
+            return events
+    raise RuntimeError("the profiler recorded no device time")
+
+
+@functools.cache
+def _flush():
+    """A function that overwrites the whole L2 (twice its size, in a
+    float64 fill no timed form launches), and its kernels' names."""
+    buf = torch.empty(2 * L2_BYTES // 8, dtype=torch.float64, device="cuda")
+
+    def fill():
+        buf.fill_(0.5)
+    fill()
+    return fill, {e.key for e in profile_kernels(fill)}
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False):
+    """Device time per call of fn(): the time of every kernel it
+    launches, summed (CUPTI through torch.profiler), over `iters` calls;
+    with `cold`, the L2 is overwritten before each call and the
+    overwrite's own kernel is left out."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    skip = set()
+    timed = fn
+    if cold:
+        flush, skip = _flush()
+
+        def timed():
+            flush()
+            fn()
+    events = [e for e in profile_kernels(timed, iters) if e.key not in skip]
+    return sum(_device_us(e) for e in events) / iters / 1e3
+
+
+def stream_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 5):
+    """Time per call of fn() on the stream: the median over `repeats` of
+    the mean of `iters` back-to-back calls between two CUDA events,
+    after `warmup` calls. When the host issues calls slower than the
+    card runs them, this is the host's time per call; the median keeps
+    a repeat that the shared host stalled out of it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / iters)
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float) -> "tuple[float, str]":
+    """The least time the card could take: bytes at the HBM rate or
+    operations at the 32-bit rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# -- inputs and forms --------------------------------------------------------------
+
+
+def quorum_inputs(n: int, r: int, gen: torch.Generator, dev):
+    """Seeded [N, R] quorum inputs with edge rows: an empty config, an
+    empty joint config, a joint row, a single voter."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    match = torch.randint(0, 1 << 20, (n, r), generator=gen, device=dev,
+                          dtype=torch.int32)
+    voter = rand(n, r) < 0.8
+    voter_out = rand(n, r) < 0.4
+    in_joint = rand(n) < 0.5
+    votes = torch.randint(-1, 2, (n, r), generator=gen, device=dev,
+                          dtype=torch.int32)
+    voter[0] = False
+    in_joint[0] = False
+    voter[1] = False
+    voter_out[1] = False
+    in_joint[1] = True
+    in_joint[2] = True
+    voter[3] = False
+    voter[3, 0] = True
+    in_joint[3] = False
+    return match, voter, voter_out, in_joint, votes
+
+
+def term_inputs(n: int, w: int, k: int, gen: torch.Generator, dev):
+    """Seeded ring-lookup inputs: indexes below, at, inside and above
+    each ring, with edge rows for a negative index and a wrapped ring."""
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    log_term = randint(1, 1 << 16, (n, w))
+    snap_index = randint(0, 1 << 20, (n,))
+    snap_term = randint(1, 1 << 16, (n,))
+    last = snap_index + randint(0, w + 1, (n,))
+    idx = snap_index.unsqueeze(-1) + randint(-3, w + 3, (n, k))
+    idx[0] = snap_index[0]          # at the floor
+    idx[1] = snap_index[1] - 1      # below it
+    idx[2] = last[2] + 1            # above the ring
+    idx[3] = -5                     # negative
+    snap_index[4] = -9              # a negative index inside the ring
+    last[4] = 2
+    idx[4] = -3
+    return log_term, snap_index, snap_term, last, idx if k > 1 else idx[:, 0]
+
+
+def main_path_forms(dev, k=k_plain, hk=hk_plain):
+    """Every form the main path gives the two kernels, at N = 196,608
+    rows: a list of dicts with the form's key (as
+    hopper_kernels.FORM_LAUNCHES counts it), `call` through the site
+    functions of kernels module `k` (and the fused quorum form through
+    `hk`), `plain` through this checkout's plain forms, and the bytes
+    and operations of its bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = GROUPS * R
+    match, voter, voter_out, in_joint, votes = quorum_inputs(n, R, gen, dev)
+    masks = (voter, voter_out, in_joint)
+    prefix = torch.rand((n, R, R), generator=gen, device=dev) < 0.5
+    tally = torch.where(prefix, 1, -1).to(torch.int32)
+    joint = in_joint.float().mean().item()
+    support_ops = R + R * (2 * R + 2)  # the O(R^2) support loop of a half
+    mask_bytes = 2 * R + 1             # voter, voter_out, in_joint
+    q = "quorum_commit_vote"
+    forms = [
+        {"key": f"{q} commit R={R} B=1",
+         "call": lambda: k.joint_committed(match, *masks),
+         "plain": lambda: hk_plain.quorum_commit_ref(match, *masks),
+         "bytes": n * (4 * R + mask_bytes + 4),
+         "ops": n * (1 + joint) * support_ops},
+        {"key": f"{q} vote R={R} B=1",
+         "call": lambda: k.joint_vote_result(votes, *masks),
+         "plain": lambda: hk_plain.quorum_vote_ref(votes, *masks),
+         "bytes": n * (4 * R + mask_bytes + 4),
+         "ops": n * (1 + joint) * 4 * R},
+        {"key": f"{q} both R={R} B=1",
+         "call": lambda: hk.quorum_commit_vote(match, *masks, votes),
+         "plain": lambda: hk_plain.quorum_commit_vote_ref(match, *masks,
+                                                          votes),
+         "bytes": n * (8 * R + mask_bytes + 8),
+         "ops": n * (1 + joint) * (support_ops + 4 * R)},
+        # The heartbeat-response lane's ReadIndex ack prefixes: R
+        # tallies per instance (votes 1 or -1).
+        {"key": f"{q} vote R={R} B={R}",
+         "call": lambda: k.joint_vote_result(tally, *masks),
+         "plain": lambda: hk_plain.quorum_vote_ref(
+             tally.view(-1, R), *masks, R).view(n, R),
+         "bytes": n * (4 * R * R + mask_bytes + 4 * R),
+         "ops": n * R * (1 + joint) * 4 * R},
+    ]
+    # The round's index widths: [N] (K=1), _emit's [N, R] prev indexes,
+    # _handle_append's [N, E] entry indexes and _emit's [N, R, E]
+    # entries (K=12).
+    for width in (1, R, E, R * E):
+        log_term, snap_index, snap_term, last, idx = term_inputs(
+            n, W, width, gen, dev)
+        if width == R * E:
+            idx = idx.view(n, R, E)
+        args = (log_term, snap_index, snap_term, last, idx)
+        flat = idx.view(n, -1)
+        ring = ((flat > snap_index.unsqueeze(-1))
+                & (flat <= last.unsqueeze(-1)))
+        # Distinct ring slots this data reads (the bytes it must move).
+        slots = torch.where(flat >= 0, flat % W, 0).long() + W * torch.arange(
+            n, device=dev).unsqueeze(-1)
+        ring_reads = torch.unique(slots[ring]).numel()
+        forms.append({
+            "key": f"term_at_batch K={width} W={W}",
+            "call": lambda a=args: k.term_at(*a),
+            "plain": lambda a=args: hk_plain.term_at_batch_ref(*a),
+            "bytes": 4 * (3 * n + 2 * flat.numel() + ring_reads),
+            "ops": 8 * flat.numel()})
+    return forms
+
+
+def time_form(form: dict, plain: bool = True) -> dict:
+    """A form's device time warm and L2-cold, its call time, its bound
+    and, with `plain`, its plain form's device and call times."""
+    b_ms, b_by = bound_ms(form["bytes"], form["ops"])
+    out = {"form": form["key"], "ms": device_ms(form["call"]),
+           "cold_ms": device_ms(form["call"], cold=True),
+           "call_ms": stream_ms(form["call"]), "bound_ms": b_ms,
+           "bound_by": b_by}
+    if plain:
+        out.update(plain_ms=device_ms(form["plain"]),
+                   plain_call_ms=stream_ms(form["plain"]))
+    return out
+
+
+# -- A/B of two checkouts ------------------------------------------------------------
+
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def _load_tree(tree: Path):
+    """The batched kernels and wrappers of the checkout at `tree`, as a
+    package of another name."""
+    init = tree / "etcd_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        "ab_tree", init, submodule_search_locations=[str(init.parent)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["ab_tree"] = pkg
+    spec.loader.exec_module(pkg)
+    return (importlib.import_module("ab_tree.batched.kernels"),
+            importlib.import_module("ab_tree.batched.hopper_kernels"))
+
+
+def run_one(tree: str) -> dict:
+    dev = torch.device("cuda", 0)
+    k, hk = _load_tree(Path(tree).resolve())
+    times = {}
+    for form in main_path_forms(dev, k, hk):
+        got, want = form["call"](), form["plain"]()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        if not all(map(torch.equal, got, want)):
+            raise AssertionError(f"{tree}: {form['key']} != plain form")
+        times[form["key"]] = time_form(form, plain=False)
+    return {"tree": tree, "forms": times}
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("kernel_times: needs a CUDA device", file=sys.stderr)
+        return 2
+    if argv[:1] == ["--one"]:
+        print(json.dumps(run_one(argv[1])))
+        return 0
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = argv
+    runs = {a: [], b: []}
+    for tree in (a, b, b, a):
+        proc = subprocess.run(
+            [sys.executable, "-m", "etcd_tpu_torch.tools.kernel_times",
+             "--one", str(Path(tree).resolve())], cwd=ROOT,
+            capture_output=True, text=True, timeout=600, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tree} failed:\n{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["tree"] = tree
+        print(json.dumps(rec), flush=True)
+        runs[tree].append(rec["forms"])
+    print(device_label(torch.device("cuda", 0)))
+    summary = {}
+    for tree, recs in runs.items():
+        summary[tree] = {
+            key: {m: statistics.mean(r[key][m] for r in recs)
+                  for m in ("ms", "cold_ms", "call_ms", "bound_ms")}
+            for key in recs[0]}
+    print(json.dumps({"ab": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

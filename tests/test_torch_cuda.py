@@ -30,11 +30,13 @@ def dev():
     return torch.device("cuda")
 
 
-def quorum_case(n, r, seed, dev):
+def quorum_case(n, r, seed, dev, tallies=1):
+    """Seeded inputs: match and votes [N*B, R], masks [N, R], in_joint
+    [N], with an empty config and an empty joint config."""
     rng = np.random.RandomState(seed)
-    x = [rng.randint(0, 50, size=(n, r)).astype(np.int32),
+    x = [rng.randint(0, 50, size=(n * tallies, r)).astype(np.int32),
          rng.rand(n, r) < 0.8, rng.rand(n, r) < 0.4, rng.rand(n) < 0.5,
-         rng.randint(-1, 2, size=(n, r)).astype(np.int32)]
+         rng.randint(-1, 2, size=(n * tallies, r)).astype(np.int32)]
     x[1][0], x[3][0] = False, False  # empty config
     x[1][1], x[2][1], x[3][1] = False, False, True  # empty joint config
     return [torch.as_tensor(a, device=dev) for a in x]
@@ -46,13 +48,25 @@ def ring_case(n, w, k, seed, dev):
     last = (si + rng.randint(0, w + 1, size=n)).astype(np.int32)
     idx = (si[:, None] + rng.randint(-3, w + 3, size=(n, k))).astype(np.int32)
     idx[0], idx[1], idx[2] = si[0], si[1] - 1, last[2] + 1
+    idx[3] = -4                                 # negative
+    si[4], last[4], idx[4] = -6, 1, -2          # negative, inside the ring
     x = [rng.randint(1, 9, size=(n, w)).astype(np.int32), si,
          rng.randint(1, 9, size=n).astype(np.int32), last,
          idx if k > 1 else idx[:, 0].copy()]
     return [torch.as_tensor(a, device=dev) for a in x]
 
 
-@pytest.mark.parametrize("r", [1, 3, 5, 7])
+def at_offset(x, off):
+    """x as a contiguous slice starting `off` elements into a larger
+    tensor, so the kernels meet a pointer that is not 16-byte aligned."""
+    big = torch.zeros(x.numel() + off + 5, dtype=x.dtype, device=x.device)
+    view = big[off:off + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# R in {1, 3, 5, 7}: the compiled widths; 2, 4, 9: the runtime-R kernel.
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 7, 9])
 def test_quorum_kernel_matches_plain(dev, r):
     hk.reset_launches()
     match, voter, voter_out, in_joint, votes = quorum_case(700, r, r, dev)
@@ -66,20 +80,62 @@ def test_quorum_kernel_matches_plain(dev, r):
     assert torch.equal(hk.quorum_vote(votes, voter, voter_out, in_joint),
                        want_v)
     assert hk.LAUNCHES["quorum_commit_vote"] == 3
+    assert hk.FORM_LAUNCHES == {
+        f"quorum_commit_vote {mode} R={r} B=1": 1
+        for mode in ("both", "commit", "vote")}
+
+
+@pytest.mark.parametrize("r", [3, 4, 7])
+@pytest.mark.parametrize("off", [1, 2, 3, 5])
+def test_quorum_kernel_at_an_offset(dev, r, off):
+    """Inputs that start inside a larger tensor, at addresses that are
+    not 16-byte aligned."""
+    args = [at_offset(x, off + j)
+            for j, x in enumerate(quorum_case(300, r, off, dev))]
+    want = hk.quorum_commit_vote_ref(*args)
+    for got in (hk.quorum_commit_vote(*args),
+                (hk.quorum_commit(*args[:4]),
+                 hk.quorum_vote(args[4], *args[1:4]))):
+        assert all(map(torch.equal, got, want))
+
+
+@pytest.mark.parametrize("r", [3, 5, 9])
+@pytest.mark.parametrize("tallies", [1, 3, 5])
+def test_quorum_tallies_with_unexpanded_masks(dev, r, tallies):
+    match, voter, voter_out, in_joint, votes = quorum_case(
+        301, r, tallies, dev, tallies)
+    hk.reset_launches()
+    got = hk.quorum_vote(votes, voter, voter_out, in_joint, tallies)
+    assert hk.LAUNCHES["quorum_commit_vote"] == 1
+    assert torch.equal(got, hk.quorum_vote_ref(votes, voter, voter_out,
+                                               in_joint, tallies))
+    rows = [x.repeat_interleave(tallies, 0)
+            for x in (voter, voter_out, in_joint)]
+    assert torch.equal(got, hk.quorum_vote_ref(votes, *rows))
 
 
 def test_vote_prefix_tallies_match_plain(dev):
     """[N, R, R] tallies, as the heartbeat-response lane builds them,
-    through kernels.joint_vote_result: one kernel launch over N*R rows."""
+    through kernels.joint_vote_result: one launch over N*R rows with the
+    masks unexpanded, and no other kernel (no mask copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
     _, voter, voter_out, in_joint, _ = quorum_case(700, 3, 4, dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     votes = torch.where(torch.rand((700, 3, 3), generator=gen, device=dev)
                         < 0.5, 1, -1).to(torch.int32)
-    masks = [tk.per_tally(x, votes) for x in (voter, voter_out, in_joint)]
     hk.reset_launches()
-    got = tk.joint_vote_result(votes, voter, voter_out, in_joint)
-    assert hk.LAUNCHES["quorum_commit_vote"] == 1
-    assert torch.equal(got, tk.joint_vote_result_plain(votes, *masks))
+    tk.joint_vote_result(votes, voter, voter_out, in_joint)  # build, load
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tk.joint_vote_result(votes, voter, voter_out, in_joint)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert hk.FORM_LAUNCHES == {"quorum_commit_vote vote R=3 B=3": 2}
+    assert torch.equal(got, tk.joint_vote_result_plain(
+        votes.view(-1, 3), voter, voter_out, in_joint, 3).view(700, 3))
 
 
 @pytest.mark.parametrize("k", [1, 3, 4, 12])
@@ -88,6 +144,51 @@ def test_term_kernel_matches_plain(dev, k):
     args = ring_case(700, 32, k, k, dev)
     assert torch.equal(hk.term_at_batch(*args), hk.term_at_batch_ref(*args))
     assert hk.LAUNCHES["term_at_batch"] == 1
+    assert hk.FORM_LAUNCHES == {f"term_at_batch K={k} W=32": 1}
+
+
+# The general kernel: K and W outside the compiled set, W not a power
+# of two; and the compiled K = 4, 12 with 16-byte vectors unaligned.
+@pytest.mark.parametrize("k, w, off", [(5, 12, 0), (2, 32, 0), (4, 16, 0),
+                                       (4, 32, 1), (12, 32, 2), (3, 32, 3)])
+def test_term_kernel_other_widths_and_offsets(dev, k, w, off):
+    args = [at_offset(x, off) for x in ring_case(700, w, k, 10 * k + w, dev)]
+    assert torch.equal(hk.term_at_batch(*args), hk.term_at_batch_ref(*args))
+
+
+def test_kernels_capture_in_a_cuda_graph(dev):
+    """Each wrapper launches on the current stream, allocates nothing in
+    the kernel and never syncs: captured once and replayed, it equals
+    the eager call on new inputs."""
+    q = quorum_case(700, 3, 7, dev, 3)
+    ring = ring_case(700, 32, 12, 7, dev)
+    calls = {
+        "both": lambda: hk.quorum_commit_vote(q[0][:700], *q[1:4],
+                                              q[4][:700]),
+        "commit": lambda: (hk.quorum_commit(q[0][:700], *q[1:4]),),
+        "tallies": lambda: (hk.quorum_vote(q[4], *q[1:4], 3),),
+        "term": lambda: (hk.term_at_batch(*ring),),
+        "term1": lambda: (hk.term_at_batch(*ring[:4], ring[4][:, 5]
+                                           .contiguous()),),
+    }
+    for name, call in calls.items():
+        call()  # build and load outside the capture
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            call()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        # New inputs in place, then replay against an eager call.
+        fresh_q = quorum_case(700, 3, 8, dev, 3)
+        fresh_ring = ring_case(700, 32, 12, 8, dev)
+        for x, y in zip(q + ring, fresh_q + fresh_ring):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, out, call())), name
 
 
 def test_wrappers_reject_bad_arguments(dev):

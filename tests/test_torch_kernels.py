@@ -101,6 +101,26 @@ def test_joint_vote_result_batched_tallies_match():
                               t(in_joint)), want)
 
 
+@pytest.mark.parametrize("tallies", [1, 3, 5])
+def test_joint_vote_result_plain_tallies_match_jax(tallies):
+    """The tallies contract of the plain form (votes [N*B, R], the masks
+    [N, R] / [N] unexpanded), against JAX's joint_vote_result mapped over
+    each instance's B tallies; B = R = 3 is the heartbeat-response
+    lane's [N, R, R] ack prefixes."""
+    _, voter, voter_out, in_joint, _ = quorum_case(150, 3, 20 + tallies)
+    rng = np.random.RandomState(tallies)
+    votes = rng.randint(-1, 2, size=(150, tallies, 3)).astype(np.int32)
+    want = jax.vmap(
+        lambda v, a, b, j: jax.vmap(
+            lambda vv: jk.joint_vote_result(vv, a, b, j))(v)
+    )(votes, voter, voter_out, in_joint)
+    masks = [t(x) for x in (voter, voter_out, in_joint)]
+    flat = t(votes).view(-1, 3)
+    got = tk.joint_vote_result_plain(flat, *masks, tallies)
+    same(got.view(150, tallies), want)
+    same(hk.quorum_vote(flat, *masks, tallies).view(150, tallies), want)
+
+
 @pytest.mark.parametrize("shape", [(), (5,), (3, 4)])
 def test_term_at_matches(shape):
     k = int(np.prod(shape)) if shape else 1
@@ -233,6 +253,63 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     assert torch.equal(hk.term_at_batch(*args), hk.term_at_batch_ref(*args))
     # No kernel ran, so nothing was counted.
     assert hk.LAUNCHES == {"quorum_commit_vote": 0, "term_at_batch": 0}
+    assert not hk.FORM_LAUNCHES
+
+
+@pytest.mark.parametrize("label", ["bench", "prevote_cq"])
+def test_round_sites_pass_contiguous_arguments(monkeypatch, label):
+    """The site functions hand their arguments to the wrappers without
+    a copy, and a wrapper on the card raises on a strided tensor: every
+    argument that reaches a wrapper over 40 rounds of a seeded schedule
+    (elections, proposals, a partition, reads, transfers) is
+    contiguous, in both parity configs of chip_smoke.py."""
+    from etcd_tpu_torch.batched.state import BatchedConfig, init_state
+    from etcd_tpu_torch.batched.step import (
+        NUM_KINDS, empty_msgs, make_step_round, route)
+    from etcd_tpu_torch.tools.benchlib import bench_config
+
+    calls = {}
+
+    def checked(name):
+        wrapper = getattr(hk, name)
+
+        def call(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            for j, x in enumerate(args):
+                if isinstance(x, torch.Tensor):
+                    assert x.is_contiguous(), f"{name} argument {j}"
+            return wrapper(*args, **kw)
+        monkeypatch.setattr(hk, name, call)
+
+    for name in ("quorum_commit", "quorum_vote", "term_at_batch"):
+        checked(name)
+    cfg = bench_config(8) if label == "bench" else BatchedConfig(
+        num_groups=8, num_replicas=3, window=16, max_ents_per_msg=4,
+        max_props_per_round=4, election_timeout=10, heartbeat_timeout=1,
+        pre_vote=True, check_quorum=True, auto_compact=True)
+    n = cfg.num_instances
+    cpu = torch.device("cpu")
+    st = init_state(cfg, device=cpu)
+    inbox = empty_msgs((n, 3, NUM_KINDS), cfg.max_ents_per_msg, device=cpu)
+    step = make_step_round(cfg, device=cpu)
+    gen = torch.Generator().manual_seed(3)
+    for rnd in range(40):
+        iso = torch.zeros(n, dtype=torch.bool)
+        if 20 <= rnd < 30:
+            iso[rnd % 3::7] = True
+        st, out = step(
+            st, inbox, torch.full((n,), rnd % 2 == 0 or label != "bench"),
+            torch.rand(n, generator=gen) < (0.3 if rnd < 3 else 0.01),
+            torch.randint(0, cfg.max_props_per_round + 1, (n,),
+                          generator=gen, dtype=torch.int32),
+            iso, torch.where(torch.rand(n, generator=gen) < 0.05,
+                             torch.randint(1, 4, (n,), generator=gen,
+                                           dtype=torch.int32), 0),
+            torch.rand(n, generator=gen) < 0.05)
+        inbox = route(cfg, out)
+    assert int(st.commit.max()) > 0
+    assert calls["quorum_commit"] and calls["quorum_vote"]
+    assert calls["term_at_batch"]
 
 
 @pytest.mark.parametrize("bad, err", [
@@ -243,3 +320,30 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
 def test_argument_check_raises(bad, err):
     with pytest.raises(err):
         hk._check("x", bad, torch.int32, (4, 3), torch.device("cpu"))
+
+
+def test_kernel_times_forms_of_a_checkout(monkeypatch):
+    """tools/kernel_times loads a checkout's site functions under another
+    package name, as its A/B of two checkouts does, and every main-path
+    form (the keys hopper_kernels.FORM_LAUNCHES counts) gives what this
+    checkout's plain forms give; on CPU tensors, at a small G."""
+    from pathlib import Path
+
+    from etcd_tpu_torch.tools import kernel_times as kt
+
+    monkeypatch.setattr(kt, "GROUPS", 8)
+    root = Path(kt.__file__).resolve().parents[2]
+    k, hk_tree = kt._load_tree(root)
+    assert k.__name__ == "ab_tree.batched.kernels"
+    forms = kt.main_path_forms(torch.device("cpu"), k, hk_tree)
+    assert [f["key"] for f in forms] == [
+        "quorum_commit_vote commit R=3 B=1", "quorum_commit_vote vote R=3 B=1",
+        "quorum_commit_vote both R=3 B=1", "quorum_commit_vote vote R=3 B=3",
+        "term_at_batch K=1 W=32", "term_at_batch K=3 W=32",
+        "term_at_batch K=4 W=32", "term_at_batch K=12 W=32"]
+    for f in forms:
+        got, want = f["call"](), f["plain"]()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        assert all(map(torch.equal, got, want)), f["key"]
+        assert f["bytes"] > 0 and f["ops"] > 0
