@@ -5,10 +5,13 @@
 Builds the Hopper kernels from the sources in this checkout, holds each
 one against its plain PyTorch version on the card, drives the main path
 (the bench engine at G=65,536 groups: elections, closed-loop rounds with
-proposals, commit p50) and holds the whole round on CUDA against the
-same round on the CPU. Each phase prints one line; any failure raises
-and the script exits non-zero. It needs CUDA: without it, it prints no
-result and exits non-zero.
+proposals through the engine's CUDA graph of one round, commit p50),
+profiles the graphed round beside the eager one, holds graph replays
+against eager rounds, runs the main path again with the telemetry and
+fleet planes on, and holds the whole round on CUDA against the same
+round on the CPU. Each phase prints one line; any failure raises and the
+script exits non-zero. It needs CUDA: without it, it prints no result
+and exits non-zero.
 
 Line protocol (stdout): one line per phase (the kernels phase times
 every main-path form warm and L2-cold; the slice phase counts launches
@@ -26,7 +29,6 @@ import statistics
 import subprocess
 import sys
 import time
-import warnings
 
 import torch
 
@@ -35,8 +37,13 @@ R = 3  # the bench config's replica width
 SEED = 20261017
 
 
+START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - START,
+                      **fields}), flush=True)
 
 
 def smi(query: str) -> str:
@@ -128,13 +135,13 @@ def kernel_rows(variants: list, err: dict, launches: dict,
 # -- phase: slice (the main path) ----------------------------------------------
 
 
-def run_slice(dev) -> "tuple[dict, dict]":
+def run_slice(dev):
     """The main path, with every launch count set to 0 just before it:
-    returns the launches per kernel and per (kernel, form)."""
+    returns the launches per kernel and per (kernel, form), and the
+    engine and its proposal vector."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
     from etcd_tpu_torch.tools.benchlib import (
         make_bench_engine, measure_commit_p50, measure_rate)
-    from etcd_tpu_torch.tools.kernel_times import _device_us, profile_kernels
 
     hk.reset_launches()
     t0 = time.perf_counter()
@@ -142,8 +149,7 @@ def run_slice(dev) -> "tuple[dict, dict]":
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     before = eng.commits().copy()
-    # Five runs each, for a median and a spread: the loop is host-bound,
-    # so its rate follows the host from run to run.
+    # Five runs each, for a median and a spread.
     rates = [measure_rate(eng, props, rounds_per_call=8, calls=4)
              for _ in range(5)]
     after = eng.commits()
@@ -158,7 +164,11 @@ def run_slice(dev) -> "tuple[dict, dict]":
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name} was never launched on the main path")
+    if eng.captures != 2:
+        raise AssertionError(f"{eng.captures} graph captures, expected one "
+                             "per tick value")
     log("slice", groups=MAIN_GROUPS, rounds=rounds, setup_s=setup_s,
+        loop="CUDA graph of one round, replayed",
         group_rounds_per_s=statistics.median(rates),
         group_rounds_per_s_runs=rates,
         commit_p50_ms=statistics.median(ms for ms, _ in p50s),
@@ -167,42 +177,274 @@ def run_slice(dev) -> "tuple[dict, dict]":
         launches_per_round={k: v / rounds for k, v in launches.items()},
         form_launches_per_round={k: v / rounds for k, v in forms.items()},
         min_commit=int(after.min()), max_commit=int(after.max()))
+    return launches, forms, eng, props
 
-    # Where a round's time goes: wall time per round on the host clock
-    # (no profiler), then device time by kernel name over as many rounds
-    # (CUPTI through torch.profiler, CUDA activity only).
-    prof_rounds = 8
+
+def wall_ms(run, rounds: int) -> float:
+    """Wall time per round on the host clock, no profiler running."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run_rounds(prof_rounds, tick=True, propose_n=props)
+    run(rounds)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / prof_rounds
-    events = profile_kernels(
-        lambda: eng.run_rounds(prof_rounds, tick=True, propose_n=props))
-    # Host syncs inside the closed loop (each one stalls the host until
-    # the card drains): counted by PyTorch's sync debug mode.
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            eng.run_rounds(2, tick=True, propose_n=props)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
-                for w in caught) / 2
-    busy_ms = sum(_device_us(e) for e in events) / 1e3 / prof_rounds
-    per_round = sum(e.count for e in events) / prof_rounds
-    log("profile", groups=MAIN_GROUPS, rounds=prof_rounds,
-        wall_ms_per_round=wall_ms, device_ms_per_round=busy_ms,
-        device_busy_share=busy_ms / wall_ms,
-        device_kernels_per_round=per_round, host_syncs_per_round=syncs,
-        wall_us_per_device_kernel=wall_ms * 1e3 / per_round,
-        clocks_power=smi("clocks.sm,power.draw,temperature.gpu"),
+    return (time.perf_counter() - t0) * 1e3 / rounds
+
+
+def profile_rounds(run, rounds: int, wall=None) -> dict:
+    """Wall time per round (measured here unless given), then device
+    time by kernel name over as many rounds (CUPTI through
+    torch.profiler, CUDA activity only)."""
+    from etcd_tpu_torch.tools.kernel_times import _device_us, profile_kernels
+
+    wall_ms_ = wall_ms(run, rounds) if wall is None else wall
+    events = profile_kernels(lambda: run(rounds))
+    busy_ms = sum(_device_us(e) for e in events) / 1e3 / rounds
+    per_round = sum(e.count for e in events) / rounds
+    hopper = {e.key: {"calls_per_round": e.count / rounds,
+                      "device_us_per_call": _device_us(e) / e.count}
+              for e in events if "quorum_commit_vote" in e.key
+              or "term_at_batch" in e.key}
+    return dict(
+        wall_ms_per_round=wall_ms_, device_ms_per_round=busy_ms,
+        device_busy_share=busy_ms / wall_ms_,
+        device_kernels_per_round=per_round,
+        wall_us_per_device_kernel=wall_ms_ * 1e3 / per_round,
+        hopper_kernels=hopper,
         top_kernels=[{"name": e.key[:90], "calls_per_round":
-                      e.count / prof_rounds,
-                      "device_ms_per_round": _device_us(e) / 1e3 / prof_rounds}
+                      e.count / rounds,
+                      "device_ms_per_round": _device_us(e) / 1e3 / rounds}
                      for e in sorted(events, key=lambda e: -_device_us(e))[:12]])
-    return launches, forms
+
+
+def round_forms(eng, props) -> dict:
+    """The inputs that one eager round of `eng` gives each kernel form
+    (the first launch of each), cloned: form -> (wrapper, arguments)."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+
+    wrappers = {name: getattr(hk, name)
+                for name in ("quorum_commit", "quorum_vote", "term_at_batch")}
+    forms = {
+        "quorum_commit": lambda *a: "quorum_commit_vote commit B=1",
+        "quorum_vote": lambda *a: ("quorum_commit_vote vote "
+                                   f"B={a[4] if len(a) > 4 else 1}"),
+        "term_at_batch": lambda *a: (
+            f"term_at_batch K={a[4].shape[1] if a[4].dim() == 2 else 1}"),
+    }
+    seen = {}
+
+    def spy(name):
+        def call(*args):
+            seen.setdefault(forms[name](*args), (wrappers[name], [
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args]))
+            return wrappers[name](*args)
+        return call
+
+    for name in wrappers:
+        setattr(hk, name, spy(name))
+    try:
+        eng.step_round(tick=True, propose_n=props)
+    finally:
+        for name, fn in wrappers.items():
+            setattr(hk, name, fn)
+    return seen
+
+
+def in_round_times(eng, props, graphed: dict) -> dict:
+    """Each kernel form on the inputs the main path's round gives it,
+    timed warm and L2-cold, beside the kernel's device time per launch
+    inside the graphed round (B1's forms share one kernel name, so the
+    graph's time is their mean)."""
+    from etcd_tpu_torch.tools.kernel_times import device_ms
+
+    out = {}
+    for form, (fn, args) in sorted(round_forms(eng, props).items()):
+        k = form.split("K=")[-1] if "K=" in form else None
+        name = (f"term_at_batch_kernel<{k}," if k else
+                "quorum_commit_vote_kernel<")
+        in_graph = [v["device_us_per_call"]
+                    for key, v in graphed["hopper_kernels"].items()
+                    if name in key]
+        out[form] = {
+            "warm_us": device_ms(lambda: fn(*args), iters=10) * 1e3,
+            "cold_us": device_ms(lambda: fn(*args), iters=10,
+                                 cold=True) * 1e3,
+            "in_graph_us": in_graph[0] if in_graph else None}
+    return out
+
+
+def graph_pool_bytes():
+    """Bytes the caching allocator holds for CUDA graph pools: every
+    segment outside the default pool (one engine is alive here)."""
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) != (0, 0))
+
+
+def run_profile(eng, props) -> float:
+    """Where a round's time goes, on the main path's engine: the graphed
+    closed loop beside the eager one (step_round, as before the graph),
+    the captures and the memory. Returns the graphed round's device ms."""
+    rounds = 8
+
+    def eager(k):
+        for _ in range(k):
+            eng.step_round(tick=True, propose_n=props)
+
+    def graph(k):
+        eng.run_rounds(k, tick=True, propose_n=props)
+
+    # Both wall times before this phase's profiler sessions, the eager
+    # one again after them.
+    walls = {"graphed": wall_ms(graph, rounds), "eager": wall_ms(eager, rounds)}
+    graphed = profile_rounds(graph, rounds, walls["graphed"])
+    eager_prof = profile_rounds(eager, rounds, walls["eager"])
+    walls["eager_after_profiling"] = wall_ms(eager, rounds)
+    # Host syncs: a capture fails on any sync inside the round, and the
+    # replays run with PyTorch's sync debug mode raising on one.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run_rounds(4, tick=True, propose_n=props)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("profile", groups=MAIN_GROUPS, rounds=rounds, graphed=graphed,
+        eager=eager_prof, host_syncs_per_round="0, proven by capture",
+        kernel_forms_in_round=in_round_times(eng, props, graphed),
+        wall_ms_per_round=walls, captures=eng.capture_stats,
+        graph_pool_bytes=graph_pool_bytes(),
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        memory_reserved_bytes=torch.cuda.memory_reserved(),
+        clocks_power=smi("clocks.sm,power.draw,temperature.gpu"))
+    return graphed["device_ms_per_round"]
+
+
+# -- phase: graph (graph replays vs eager rounds) -------------------------------
+
+
+def parity_configs(groups: int, planes: bool = False) -> dict:
+    """The bench config and a config with timer elections, pre-vote,
+    check-quorum and a small ring; `planes` turns on the telemetry and
+    fleet summary planes."""
+    from etcd_tpu_torch.batched.state import BatchedConfig
+    from etcd_tpu_torch.tools.benchlib import bench_config
+
+    return {
+        "bench": bench_config(groups, planes, planes),
+        "prevote_cq": BatchedConfig(
+            num_groups=groups, num_replicas=R, window=16,
+            max_ents_per_msg=4, max_props_per_round=4,
+            election_timeout=10, heartbeat_timeout=1, pre_vote=True,
+            check_quorum=True, auto_compact=True, telemetry=planes,
+            fleet_summary=planes),
+    }
+
+
+def assert_engines_equal(a, b, context: str) -> None:
+    """Every state and inbox buffer and every plane of two engines equal
+    in value and dtype."""
+    pairs = [(f"state.{f}", x, y) for f, x, y in
+             zip(a.state._fields, a.state, b.state)]
+    pairs += [(f"inbox.{f}", x, y) for f, x, y in
+              zip(a.inbox._fields, a.inbox, b.inbox)]
+    for name, x, y in pairs:
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{context}: {name} differs")
+    if a.cfg.telemetry:
+        for name, x, y in zip(("counters", "invariants"), a.telemetry(),
+                              b.telemetry()):
+            if not (x.dtype == y.dtype and (x == y).all()):
+                raise AssertionError(f"{context}: telemetry {name} differs")
+    if a.cfg.fleet_summary and not (a.fleet_frame() == b.fleet_frame()).all():
+        raise AssertionError(f"{context}: fleet frame differs")
+
+
+def graph_vs_eager(cfg, dev, seed: int) -> dict:
+    """One schedule through two engines on `dev`: the closed-loop calls
+    through run_rounds (on CUDA, graph replays) on one and as many
+    step_round calls on the other, with the same eager control ops
+    between them; all buffers equal after every call."""
+    from etcd_tpu_torch.batched import MultiRaftEngine
+
+    n, r = cfg.num_instances, cfg.num_replicas
+    graphed, eager = (MultiRaftEngine(cfg, device=dev) for _ in range(2))
+    both = (graphed, eager)
+    gen = torch.Generator().manual_seed(seed)
+    for eng in both:
+        eng.campaign(range(0, n, r))
+    ops = (
+        lambda eng: eng.read_index(range(0, n, r)),
+        lambda eng: eng.set_membership(1, voters=(0, 1), learners=(2,)),
+        lambda eng: eng.drain_fleet() if eng.cfg.fleet_summary else None,
+        lambda eng: eng.campaign([2 * r + 1]),
+        lambda eng: eng.set_membership(1, voters=(0, 1, 2)),
+    )
+    blocks = ((1, False), (7, True), (3, False), (12, True), (5, True),
+              (12, True))
+    for i, (rounds, tick) in enumerate(blocks):
+        props = torch.randint(0, cfg.max_props_per_round + 1, (n,),
+                              generator=gen, dtype=torch.int32).to(dev)
+        graphed.run_rounds(rounds, tick=tick, propose_n=props)
+        for _ in range(rounds):
+            eager.step_round(tick=tick, propose_n=props)
+        assert_engines_equal(graphed, eager, f"block {i}")
+        for eng in both:
+            ops[i % len(ops)](eng)
+        assert_engines_equal(graphed, eager, f"after op {i}")
+    return {"rounds": graphed.rounds, "captures": graphed.captures,
+            "leaders": int((graphed.state.role == 2).sum()),
+            "max_commit": int(graphed.state.commit.max())}
+
+
+def run_graph(dev) -> None:
+    """Graph replays against eager rounds on the card, planes on."""
+    for label, cfg in parity_configs(256, planes=True).items():
+        res = graph_vs_eager(cfg, dev, SEED)
+        if res["captures"] != 2:
+            raise AssertionError(f"graph {label}: {res['captures']} captures")
+        log("graph", config=label, groups=256, equal=True, **res)
+
+
+# -- phase: planes (the main path with telemetry and fleet on) ------------------
+
+
+def run_planes(dev, base_device_ms: float) -> None:
+    """The main path with each plane and with both: rate, device time per
+    round against the planes-off round's, no invariant tripped."""
+    from etcd_tpu_torch.batched.telemetry import TM_INDEX
+    from etcd_tpu_torch.obs.fleet import FleetLayout
+    from etcd_tpu_torch.tools.benchlib import make_bench_engine, measure_rate
+
+    layout = FleetLayout(MAIN_GROUPS * R, R, MAIN_GROUPS)
+    for telemetry, fleet in ((True, False), (False, True), (True, True)):
+        eng, props = make_bench_engine(MAIN_GROUPS, telemetry, fleet,
+                                       device=dev)
+        rate = measure_rate(eng, props, rounds_per_call=8, calls=4)
+        prof = profile_rounds(
+            lambda k: eng.run_rounds(k, tick=True, propose_n=props), 8)
+        fields = {}
+        if telemetry:
+            counters, inv = eng.drain_telemetry()
+            trips = int((inv != 0).sum())
+            if trips:
+                raise AssertionError(f"invariant_trips = {trips}")
+            fields.update(invariant_trips=trips, commit_delta_total=int(
+                counters[:, TM_INDEX["commit_delta"]].sum()))
+        if fleet:
+            census = layout.decode(eng.drain_fleet())
+            if census["role_census"][2] != MAIN_GROUPS:
+                raise AssertionError(f"fleet: {census['role_census']}")
+            fields.update(role_census=census["role_census"].tolist(),
+                          top_lag=census["top_lag"].tolist())
+        log("planes", telemetry=telemetry, fleet=fleet, groups=MAIN_GROUPS,
+            group_rounds_per_s=rate,
+            device_ms_per_round=prof["device_ms_per_round"],
+            plane_device_ms_per_round=(prof["device_ms_per_round"]
+                                       - base_device_ms),
+            wall_ms_per_round=prof["wall_ms_per_round"],
+            device_busy_share=prof["device_busy_share"], **fields)
+        del eng, props
 
 
 # -- phase: parity (CUDA round vs CPU round) -----------------------------------
@@ -213,21 +455,12 @@ def run_parity(dev, plain_dev=torch.device("cpu")) -> None:
     kernels) and on `plain_dev` (the CPU: the plain forms); every state
     field and the outbox are equal after every round."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
-    from etcd_tpu_torch.batched.state import BatchedConfig, init_state
+    from etcd_tpu_torch.batched.state import init_state
     from etcd_tpu_torch.batched.step import (
         NUM_KINDS, empty_msgs, make_step_round, route)
-    from etcd_tpu_torch.tools.benchlib import bench_config
 
     groups = 256
-    configs = {
-        "bench": bench_config(groups),
-        # Timer elections with pre-vote and check-quorum, a small ring.
-        "prevote_cq": BatchedConfig(
-            num_groups=groups, num_replicas=R, window=16,
-            max_ents_per_msg=4, max_props_per_round=4,
-            election_timeout=10, heartbeat_timeout=1, pre_vote=True,
-            check_quorum=True, auto_compact=True),
-    }
+    configs = parity_configs(groups)
     rng = torch.Generator().manual_seed(SEED)
     for label, cfg in configs.items():
         n = cfg.num_instances
@@ -295,7 +528,11 @@ def main() -> int:
         build_s=time.perf_counter() - t0, library=hk.library_path().name)
 
     variants, err = check_kernels(dev)
-    launches, forms = run_slice(dev)
+    launches, forms, eng, props = run_slice(dev)
+    base_device_ms = run_profile(eng, props)
+    del eng, props
+    run_graph(dev)
+    run_planes(dev, base_device_ms)
     run_parity(dev)
     print(json.dumps({"kernels": kernel_rows(variants, err, launches,
                                              forms)}))

@@ -5,7 +5,11 @@ A port of ``etcd_tpu.batched`` (JAX on a TPU), which stays in the
 repository as the reference. The port is self-contained: it imports
 ``torch`` and never ``jax`` or any module of ``etcd_tpu``.
 
-  - ``etcd_tpu_torch.batched`` — SoA state, the vectorized round, the
-    closed-loop engine, and the quorum/ring-term Hopper kernels.
-  - ``etcd_tpu_torch.tools``   — the bench setup and the bench twin.
+  - ``etcd_tpu_torch.batched`` — SoA state, the vectorized round with
+    its telemetry and fleet planes, the closed-loop engine (a CUDA
+    graph of one round on the GPU), and the quorum/ring-term Hopper
+    kernels.
+  - ``etcd_tpu_torch.obs``     — the fleet summary frame's layout.
+  - ``etcd_tpu_torch.tools``   — the bench setup, the bench twin and the
+    kernel timers.
 """

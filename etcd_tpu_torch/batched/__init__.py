@@ -12,9 +12,12 @@ lockstep, one row per replica instance:
 - ``hopper_kernels``: the two CUDA kernels (``csrc/quorum_ring.cu``),
                their build, launch counts and plain versions.
 - ``step``:    the branch-free round over the instance axis (vectorized
-               deliver → tick → control → propose → emit) and the
-               router (a transpose over the dense layout).
-- ``engine``:  the closed-loop MultiRaftEngine.
+               deliver → tick → control → propose → emit), its
+               telemetry and fleet frames, and the router (a transpose
+               over the dense layout).
+- ``telemetry``: the telemetry frame's counter and invariant layout.
+- ``engine``:  the closed-loop MultiRaftEngine (on CUDA, a replayed
+               CUDA graph of one round).
 - ``convert``: state and messages to and from numpy.
 """
 

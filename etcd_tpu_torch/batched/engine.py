@@ -7,17 +7,38 @@ control → propose → emit → route). Entry payloads never touch the
 device: the host keeps them keyed by (group, index), and the commit
 watermarks drive payload application (ref:
 server/etcdserver/raft.go:158-315).
+
+The engine owns one buffer per state and inbox field for its lifetime,
+and every entry point writes a round's results into those buffers. On a
+CUDA device the closed loop (``run_rounds``, ``run_rounds_pipelined``)
+is a CUDA graph of one round, its route and its plane accumulators,
+captured on first use for each ``tick`` value and replayed once per
+round: the counterpart of the JAX engine's ``lax.scan`` over donated
+buffers. As with donation there, a field of ``engine.state`` read
+before a round holds that round's result after it. On the CPU the loop
+is eager.
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
+from . import hopper_kernels as hk
+from ..obs.fleet import FleetLayout
 from .state import LEADER, BatchedConfig, I32, init_state, resolve_device
-from .step import NUM_KINDS, empty_msgs, make_step_round, route
+from .step import NUM_KINDS, empty_msgs, make_step_round, route_view
+from .telemetry import NUM_COUNTERS
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A numpy copy of a device tensor (never a view of an engine
+    buffer, which later rounds overwrite)."""
+    return x.to("cpu", copy=True).numpy()
 
 
 class MultiRaftEngine:
@@ -36,9 +57,83 @@ class MultiRaftEngine:
         self._zeros_b = torch.zeros((n,), dtype=torch.bool, device=dev)
         self._ones_b = torch.ones((n,), dtype=torch.bool, device=dev)
         self._zeros_i = torch.zeros((n,), dtype=I32, device=dev)
+        # The proposal counts the captured round reads.
+        self._props = torch.zeros((n,), dtype=I32, device=dev)
+        # Step outputs past (state, outbox): telemetry, then the fleet
+        # frame (the engine's step has no aux).
+        self._tel_pos = 2
+        self._fleet_pos = 2 + int(cfg.telemetry)
+        # Telemetry accumulator: per-instance counter totals and the
+        # OR of the invariant bitmaps, since construction.
+        if cfg.telemetry:
+            self._tel_counters = torch.zeros((n, NUM_COUNTERS), dtype=I32,
+                                             device=dev)
+            self._tel_invariants = torch.zeros((n,), dtype=I32, device=dev)
+        self.telemetry_hub = None
+        # Fleet accumulator: one [L] int32 frame whose delta fields
+        # (the layout's sum mask) add across rounds and whose snapshot
+        # fields keep the latest round's. Its delta fields would wrap
+        # int32 after about 2^31/N rounds, so drain_fleet banks them
+        # into the int64 host base and zeroes them on the device.
+        if cfg.fleet_summary:
+            self._fleet_layout = FleetLayout(n, cfg.num_replicas,
+                                             cfg.num_groups)
+            self._fleet_vec = torch.zeros((self._fleet_layout.size,),
+                                          dtype=I32, device=dev)
+            self._fleet_sum_np = self._fleet_layout.sum_mask()
+            self._fleet_summask = torch.as_tensor(self._fleet_sum_np,
+                                                  device=dev)
+            self._fleet_base = np.zeros(self._fleet_layout.size, np.int64)
+        self.fleet_hub = None
+        # The storages of the buffers a round's results go into.
+        self._storages = {x.untyped_storage().data_ptr()
+                          for x in tuple(self.state) + tuple(self.inbox)}
+        # tick -> (graph, launches of its round); one memory pool for
+        # all of them, since no graph's intermediates outlive a replay.
+        self._graphs = {}
+        self._pool = None
+        self.captures = 0  # CUDA graphs captured by this engine
+        self.capture_stats = []  # per capture: tick, seconds
         self.rounds = 0  # rounds stepped since construction
 
-    # -- driving --------------------------------------------------------------
+    # -- one round -----------------------------------------------------------
+
+    def _round(self, ticks, campaign_mask, propose_n, isolate,
+               transfer_to=None, read_req=None) -> None:
+        """Step, accumulate the planes and route, writing every result
+        into the engine's buffers."""
+        out = self._step(self.state, self.inbox, ticks, campaign_mask,
+                         propose_n, isolate, transfer_to, read_req)
+        st, outbox = out[:2]
+        if self.cfg.telemetry:
+            frame = out[self._tel_pos]
+            self._tel_counters.add_(frame.counters)
+            self._tel_invariants.bitwise_or_(frame.invariants)
+        if self.cfg.fleet_summary:
+            fv = out[self._fleet_pos]
+            self._fleet_vec.copy_(torch.where(
+                self._fleet_summask, self._fleet_vec + fv, fv))
+        self._write_back(st, outbox)
+
+    def _write_back(self, st, outbox) -> None:
+        """Copy a round's state into the state buffers and route its
+        outbox into the inbox buffers, one copy per field. A result that
+        is its own buffer stays; one that shares storage with a buffer
+        in any other way is cloned first, so no copy overwrites a result
+        that a later copy reads (under a CUDA graph this check runs once,
+        at capture)."""
+        pairs = list(zip(self.state, st, strict=True))
+        for buf, x in zip(self.inbox, outbox, strict=True):
+            routed = route_view(self.cfg, x)
+            pairs.append((buf.view(routed.shape), routed))
+        pairs = [(buf, x if x is buf
+                  or x.untyped_storage().data_ptr() not in self._storages
+                  else x.clone()) for buf, x in pairs]
+        for buf, x in pairs:
+            if x is not buf:
+                buf.copy_(x)
+
+    # -- driving -------------------------------------------------------------
 
     def step_round(
         self,
@@ -49,27 +144,106 @@ class MultiRaftEngine:
         transfer_to: Optional[torch.Tensor] = None,
         read_req: Optional[torch.Tensor] = None,
     ) -> None:
-        """One round: deliver pending messages, optionally tick every
-        instance, run host control ops (leader transfer, ReadIndex),
-        append proposals on leaders, route the outbox. `isolate` cuts
-        instances off the network for this round."""
-        self.state, outbox = self._step(
-            self.state, self.inbox,
+        """One eager round: deliver pending messages, optionally tick
+        every instance, run host control ops (leader transfer,
+        ReadIndex), append proposals on leaders, route the outbox.
+        `isolate` cuts instances off the network for this round."""
+        self._round(
             self._ones_b if tick else self._zeros_b,
             self._zeros_b if campaign_mask is None else campaign_mask,
             self._zeros_i if propose_n is None else propose_n,
             self._zeros_b if isolate is None else isolate,
             transfer_to, read_req,
         )
-        self.inbox = route(self.cfg, outbox)
         self.rounds += 1
+
+    def _set_props(self, propose_n: Optional[torch.Tensor]) -> None:
+        if propose_n is None:
+            self._props.zero_()
+        else:
+            self._props.copy_(propose_n)
+
+    def _capture(self, tick: bool):
+        """Capture one closed-loop round for `tick` into a CUDA graph
+        over the engine's buffers. A failed capture raises."""
+        ticks = self._ones_b if tick else self._zeros_b
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with hk.recorded_launches() as launches:
+            with torch.cuda.graph(graph, pool=self._pool):
+                self._round(ticks, self._zeros_b, self._props,
+                            self._zeros_b)
+        self._pool = graph.pool()
+        self.captures += 1
+        self.capture_stats.append({"tick": tick,
+                                   "seconds": time.perf_counter() - t0})
+        self._graphs[tick] = (graph, launches)
+        return self._graphs[tick]
+
+    def _replay(self, rounds: int, tick: bool) -> None:
+        """`rounds` closed-loop rounds through the graph for `tick`, on
+        the current stream, with no host sync. The first use of a tick
+        value runs one eager round, which loads every kernel the round
+        launches, and then captures."""
+        if rounds <= 0:
+            return
+        entry = self._graphs.get(tick)
+        if entry is None:
+            self._round(self._ones_b if tick else self._zeros_b,
+                        self._zeros_b, self._props, self._zeros_b)
+            self.rounds += 1
+            rounds -= 1
+            entry = self._capture(tick)
+        graph, launches = entry
+        for _ in range(rounds):
+            graph.replay()
+        hk.add_launches(launches, rounds)
+        self.rounds += rounds
 
     def run_rounds(self, rounds: int, tick: bool = True,
                    propose_n: Optional[torch.Tensor] = None) -> None:
-        """Closed-loop simulation of `rounds` rounds: a host loop of
-        step then route, with no host sync inside it."""
-        for _ in range(rounds):
-            self.step_round(tick=tick, propose_n=propose_n)
+        """Closed-loop simulation of `rounds` rounds with no host sync:
+        on CUDA, replays of the captured round; on the CPU, eager
+        rounds."""
+        if self.device.type != "cuda":
+            for _ in range(rounds):
+                self.step_round(tick=tick, propose_n=propose_n)
+            return
+        with torch.cuda.device(self.device):
+            self._set_props(propose_n)
+            self._replay(rounds, tick)
+
+    def run_rounds_pipelined(self, rounds: int, chunk: int = 16,
+                             depth: int = 2, tick: bool = True,
+                             propose_n: Optional[torch.Tensor] = None
+                             ) -> None:
+        """`rounds` closed-loop rounds enqueued in chunks of `chunk`,
+        with at most `depth` chunks in flight: each chunk records a CUDA
+        event as its fence, and the host waits on the oldest fence when
+        more are in flight. The last chunks are left in flight; a caller
+        that needs them done synchronizes as usual. On the CPU, the
+        serial loop."""
+        if rounds <= 0:
+            return
+        if chunk <= 0:
+            # A non-positive chunk would never advance: a host hang.
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if self.device.type != "cuda":
+            self.run_rounds(rounds, tick=tick, propose_n=propose_n)
+            return
+        with torch.cuda.device(self.device):
+            self._set_props(propose_n)
+            fences: deque = deque()
+            done = 0
+            while done < rounds:
+                n = min(chunk, rounds - done)
+                self._replay(n, tick)
+                done += n
+                fence = torch.cuda.Event()
+                fence.record()
+                fences.append(fence)
+                while len(fences) > depth:
+                    fences.popleft().synchronize()
 
     def _mask(self, instance_ids, value, like):
         idx = torch.as_tensor(np.asarray(instance_ids, np.int64),
@@ -96,38 +270,76 @@ class MultiRaftEngine:
         """(seq, index, ready) per instance — the ReadState watermarks
         (ref: read_only.go advance → Ready.ReadStates)."""
         st = self.state
-        return (st.read_seq.cpu().numpy(), st.read_index.cpu().numpy(),
-                st.read_ready.cpu().numpy())
+        return (_host(st.read_seq), _host(st.read_index),
+                _host(st.read_ready))
 
     def set_membership(self, group: int, voters, voters_out=(),
                        learners=(), joint: bool = False) -> None:
-        """Upload new membership masks for every replica row of `group`
+        """Write new membership masks into every replica row of `group`
         — the confchange apply point (ref: confchange/confchange.go)."""
         r = self.cfg.num_replicas
         rows = slice(group * r, (group + 1) * r)
-
-        def mask(slots) -> torch.Tensor:
+        st = self.state
+        for name, slots in (("voter", voters), ("voter_out", voters_out),
+                            ("learner", learners)):
             m = torch.zeros((r,), dtype=torch.bool, device=self.device)
             m[list(slots)] = True
-            return m
+            getattr(st, name)[rows] = m
+        st.in_joint[rows] = bool(joint)
 
-        st = self.state
-        upd = {}
-        for name, value in (("voter", mask(voters)),
-                            ("voter_out", mask(voters_out)),
-                            ("learner", mask(learners))):
-            t = getattr(st, name).clone()
-            t[rows] = value
-            upd[name] = t
-        in_joint = st.in_joint.clone()
-        in_joint[rows] = bool(joint)
-        self.state = st._replace(in_joint=in_joint, **upd)
+    # -- telemetry (device → host gathers; cfg.telemetry only) ---------------
 
-    # -- observation (device → host gathers) ----------------------------------
+    def telemetry(self) -> "tuple[np.ndarray, np.ndarray]":
+        """(counters [N, NUM_COUNTERS], invariants [N]): per-instance
+        totals accumulated on the device since construction (column
+        order: telemetry.TM_NAMES). One host gather."""
+        if not self.cfg.telemetry:
+            raise RuntimeError("engine built with telemetry=False")
+        return _host(self._tel_counters), _host(self._tel_invariants)
+
+    def drain_telemetry(self, hub=None) -> "tuple[np.ndarray, np.ndarray]":
+        """Fold the accumulated totals into `hub` (or the attached
+        ``telemetry_hub``), any object with ``ingest_totals(counters,
+        invariants)``; returns the fetched (counters, invariants)."""
+        counters, inv = self.telemetry()
+        hub = hub or self.telemetry_hub
+        if hub is not None:
+            hub.ingest_totals(counters, inv)
+        return counters, inv
+
+    # -- fleet summary (device → host gathers; cfg.fleet_summary only) -------
+
+    def _fleet_totals(self) -> "tuple[np.ndarray, np.ndarray]":
+        if not self.cfg.fleet_summary:
+            raise RuntimeError("engine built with fleet_summary=False")
+        dev = _host(self._fleet_vec).astype(np.int64)
+        return dev, np.where(self._fleet_sum_np, self._fleet_base + dev, dev)
+
+    def fleet_frame(self) -> np.ndarray:
+        """The accumulated [L] frame (obs/fleet.FleetLayout order,
+        int64): delta fields are sums across rounds (the device window
+        plus the drained int64 base), snapshot fields hold the last
+        round's census and top-k. One host gather."""
+        return self._fleet_totals()[1]
+
+    def drain_fleet(self, hub=None) -> np.ndarray:
+        """Fold the accumulated frame into `hub` (or the attached
+        ``fleet_hub``), any object with ``ingest_totals(vec)``, then bank
+        the device window's sums into the int64 base and zero them on
+        the device, in place (the captured round adds into that
+        buffer); returns the fetched vector."""
+        dev, vec = self._fleet_totals()
+        hub = hub or self.fleet_hub
+        if hub is not None:
+            hub.ingest_totals(vec)
+        self._fleet_base += np.where(self._fleet_sum_np, dev, 0)
+        self._fleet_vec.masked_fill_(self._fleet_summask, 0)
+        return vec
+
+    # -- observation (device → host gathers) ---------------------------------
 
     def _per_group(self, x: torch.Tensor) -> np.ndarray:
-        return x.cpu().numpy().reshape(self.cfg.num_groups,
-                                       self.cfg.num_replicas)
+        return _host(x).reshape(self.cfg.num_groups, self.cfg.num_replicas)
 
     def leaders(self) -> np.ndarray:
         """Per group: leader replica slot, or -1."""

@@ -27,6 +27,7 @@ capture them.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -57,9 +58,11 @@ MODE_NAMES = {MODE_COMMIT: "commit", MODE_VOTE: "vote",
 MAX_ELEMS = 2**31 - 1
 
 # Kernel launches per wrapper since the last reset_launches(), and per
-# (kernel, form): a count is added where the kernel is launched and
-# nowhere else, so a run can show that its CUDA path went through the
-# kernels, and with which shapes.
+# (kernel, form): a count is added where a wrapper launches its kernel
+# and nowhere else, so a run can show that its CUDA path went through
+# the kernels, and with which shapes. Under a CUDA graph capture a
+# launch is only recorded: the count is taken back and added once per
+# replay (recorded_launches, add_launches).
 LAUNCHES = {"quorum_commit_vote": 0, "term_at_batch": 0}
 FORM_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -68,6 +71,34 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     FORM_LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """For a CUDA graph capture, where a wrapper's launch is recorded
+    and runs only at each replay: the counts leave the block as they
+    entered it, and the dict yielded receives the launches made inside
+    ("kernels": per kernel, "forms": per form), which the replayer adds
+    with add_launches once per replay."""
+    kernels, forms = dict(LAUNCHES), collections.Counter(FORM_LAUNCHES)
+    made = {}
+    try:
+        yield made
+    finally:
+        made["kernels"] = {k: LAUNCHES[k] - kernels[k] for k in LAUNCHES}
+        made["forms"] = FORM_LAUNCHES - forms
+        LAUNCHES.update(kernels)
+        FORM_LAUNCHES.clear()
+        FORM_LAUNCHES.update(forms)
+
+
+def add_launches(made: dict, times: int = 1) -> None:
+    """Count the launches of a recorded block (recorded_launches) as
+    made `times` more times: its graph was replayed that often."""
+    for k, v in made["kernels"].items():
+        LAUNCHES[k] += v * times
+    for k, v in made["forms"].items():
+        FORM_LAUNCHES[k] += v * times
 
 
 # -- build -------------------------------------------------------------------

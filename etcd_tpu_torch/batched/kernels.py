@@ -16,6 +16,9 @@ array forms of the scalar oracles:
                          nondecreasing in the index, so the backward
                          scan becomes a masked count.
 
+``invariant_bits`` and ``log_bucket_*`` serve the telemetry and fleet
+frames of the round.
+
 ``joint_committed``, ``joint_vote_result`` and ``term_at`` are the
 round's quorum and term sites. They go through the wrappers of
 hopper_kernels.py, which launch the Hopper kernels on CUDA tensors and
@@ -212,6 +215,72 @@ def find_conflict_by_term(log_term: torch.Tensor, snap_index: torch.Tensor,
     floor = torch.where(row(snap_term) <= term, row(snap_index),
                         row(snap_index) - 1)
     return torch.where(cnt > 0, row(snap_index) + cnt, floor)
+
+
+def invariant_bits(st, slot: torch.Tensor) -> torch.Tensor:
+    """[N] int32 illegal-state bitmap of an end-of-round state (bit
+    order: telemetry.INV_NAMES); `slot` [N] is each row's replica slot.
+
+    Everything here is impossible under the raft model: a set bit means
+    a kernel bug or a violated environment assumption (a torn WAL tail
+    faking back acked state). Leader-side progress conditions are
+    masked to tracked peers other than self."""
+    # Local constants mirror state.py, which this module does not import.
+    leader, probe, snapshot = 2, 0, 2
+    peers = torch.arange(st.match.shape[-1], dtype=I32, device=slot.device)
+    is_leader = st.role == leader
+    tracked = ((st.voter | st.voter_out | st.learner)
+               & (peers != slot.unsqueeze(-1)))
+    stale_next = st.next <= st.match
+    bad = (
+        is_leader & (tracked & stale_next).any(-1),
+        st.commit > st.last,
+        st.snap_index > st.commit,
+        is_leader & (st.lead != slot + 1),
+        # The progress wedge: a paused probe that can never progress.
+        is_leader & (tracked & (st.pr_state == probe) & st.probe_sent
+                     & stale_next).any(-1),
+        # A snapshot whose pending index the peer already covers.
+        is_leader & (tracked & (st.pr_state == snapshot)
+                     & (st.pending_snapshot <= st.match)).any(-1),
+        st.read_ready & (st.read_index < 0),
+        st.fenced & is_leader,
+        ~st.in_joint & st.voter_out.any(-1),
+        # Ring occupancy past the window: an append overwrote a live slot.
+        (st.last - st.snap_index) > st.log_term.shape[-1],
+        (st.lease_ticks > 0) & ~is_leader,
+    )
+    bits = torch.zeros(st.commit.shape, dtype=I32, device=slot.device)
+    for i, b in enumerate(bad):
+        bits |= b.to(I32) << i
+    return bits
+
+
+def log_bucket_index(v: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """Log2 bucket of each value: bucket 0 holds v <= 0, bucket b
+    (1..num_buckets-2) holds v in [2^(b-1), 2^b), the last bucket is
+    open-ended (obs/fleet.BUCKET_BOUNDS). The count of powers of two at
+    or below v, as int32."""
+    thr = 1 << torch.arange(num_buckets - 1, dtype=I32, device=v.device)
+    return _count(v.unsqueeze(-1) >= thr)
+
+
+def log_bucket_counts_masked(v: torch.Tensor, num_buckets: int,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """[B] int32 histogram of `v` (any shape) over log2 buckets,
+    restricted to `mask` (v's shape). Compare and sum: no bincount,
+    whose output size would come from the data (a host sync on CUDA)."""
+    b = log_bucket_index(v, num_buckets)
+    buckets = torch.arange(num_buckets, dtype=I32, device=v.device)
+    hit = (b.unsqueeze(-1) == buckets) & mask.unsqueeze(-1)
+    return hit.reshape(-1, num_buckets).sum(0, dtype=I32)
+
+
+def log_bucket_counts(v: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """log_bucket_counts_masked with every element counted."""
+    return log_bucket_counts_masked(
+        v, num_buckets, torch.ones(v.shape, dtype=torch.bool,
+                                   device=v.device))
 
 
 def ring_write(log_term: torch.Tensor, start_index: torch.Tensor,

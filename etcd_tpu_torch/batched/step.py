@@ -17,6 +17,12 @@ routing between the instances of a group is one transpose of the
     deliver (the scan-free vectorized fold) → tick → control → propose
     → emit → route
 
+With ``cfg.telemetry`` / ``cfg.fleet_summary`` the round also emits
+the telemetry frame (per-instance counters and invariant bits) and the
+fleet summary frame (one flat [L] vector of cross-row reductions):
+pure reads of the round's inputs and outputs, so protocol state is the
+same with the planes on or off.
+
 The quorum and term sites call kernels.joint_committed /
 joint_vote_result / term_at, which launch the Hopper kernels on CUDA
 tensors. Every handler runs on every instance every round and its
@@ -34,12 +40,16 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.fleet import FLEET_BUCKETS, FleetLayout
 from .kernels import (
     VOTE_LOST,
     VOTE_WON,
     find_conflict_by_term,
+    invariant_bits,
     joint_committed,
     joint_vote_result,
+    log_bucket_counts,
+    log_bucket_counts_masked,
     ring_write,
     ring_write_masked,
     term_at,
@@ -59,6 +69,7 @@ from .state import (
     resolve_device,
     widen_state,
 )
+from .telemetry import NUM_COUNTERS
 
 # Message kinds = inbox slot layout. THE INBOX LANE-ORDER CONTRACT: the
 # first NUM_REQ_KINDS lanes carry requests, and the response to a
@@ -1109,18 +1120,20 @@ def _emit(cfg: BatchedConfig, ids: Ids, st: BatchedState):
 # -----------------------------------------------------------------------------
 
 
+def route_view(cfg: BatchedConfig, x: torch.Tensor) -> torch.Tensor:
+    """One outbox field [N, R, ...] routed, as a view [G, R, R, ...] of
+    it indexed [group, target, sender, ...] (route() copies it into the
+    inbox's [N, R, ...] layout)."""
+    g, r = cfg.num_groups, cfg.num_replicas
+    return x.reshape((g, r) + x.shape[1:]).transpose(1, 2)
+
+
 def route(cfg: BatchedConfig, outbox: MsgSlots) -> MsgSlots:
     """All-device network: outbox[i, target_slot, k] → inbox[t,
     sender_slot, k] where i=(g, s) and t=(g, r): one transpose of the
     (sender, target) axes per field. Lane indexes pass through: the
     round already placed each response in lane k + NUM_REQ_KINDS."""
-    g, r = cfg.num_groups, cfg.num_replicas
-
-    def tr(x):
-        y = x.reshape((g, r) + x.shape[1:]).transpose(1, 2)
-        return y.reshape((g * r,) + x.shape[1:])
-
-    return MsgSlots(*(tr(x) for x in outbox))
+    return MsgSlots(*(route_view(cfg, x).reshape(x.shape) for x in outbox))
 
 
 class StepAux(NamedTuple):
@@ -1146,12 +1159,161 @@ def _stack_lanes(lanes) -> MsgSlots:
     return MsgSlots(*(torch.stack(xs, dim=2) for xs in zip(*lanes)))
 
 
+class TelemetryFrame(NamedTuple):
+    """Per-round telemetry (cfg.telemetry): event counters in
+    telemetry.TM_NAMES column order and the invariant bitmap
+    (kernels.invariant_bits, telemetry.INV_NAMES)."""
+
+    counters: torch.Tensor  # [N, NUM_COUNTERS] i32
+    invariants: torch.Tensor  # [N] i32
+
+
+def _telemetry_frame(ids: Ids, pre: BatchedState, post: BatchedState,
+                     inbox: MsgSlots, out: MsgSlots, last_tick: torch.Tensor,
+                     n_new: torch.Tensor) -> TelemetryFrame:
+    """Counters of one round per instance, a pure read of its inputs and
+    outputs: `inbox` after the isolate mask, `out` the wide outbox after
+    the response lanes and the isolate mask."""
+    def cnt(m):
+        return m.reshape(m.shape[0], -1).sum(-1, dtype=I32)
+
+    def lane(x, k):
+        return x[:, :, k]
+
+    v, t = out.valid, out.type
+    ar_v = lane(v, KIND_APP_RESP) & (lane(t, KIND_APP_RESP) == T_APP_RESP)
+    ar_rej = lane(out.reject, KIND_APP_RESP)
+    appended = post.last - last_tick
+
+    def cand(role):
+        return (role == CANDIDATE) | (role == PRECANDIDATE)
+
+    won = (post.role == LEADER) & (pre.role != LEADER)
+    started = (cand(post.role) & ~cand(pre.role)) | (won & ~cand(pre.role))
+    cols = (
+        cnt(lane(v, KIND_VOTE)),
+        cnt(lane(v, KIND_APP) & (lane(t, KIND_APP) == T_APP)),
+        cnt(lane(v, KIND_APP) & (lane(t, KIND_APP) == T_SNAP)),
+        cnt(lane(v, KIND_HB) & (lane(t, KIND_HB) == T_HB)),
+        cnt(lane(v, KIND_HB) & (lane(t, KIND_HB) == T_TIMEOUT_NOW)),
+        cnt(lane(v, KIND_VOTE_RESP)),
+        cnt(lane(v, KIND_APP_RESP)),
+        cnt(lane(v, KIND_HB_RESP)),
+        cnt(inbox.valid),
+        cnt(ar_v & ~ar_rej),
+        cnt(ar_v & ar_rej),
+        cnt((pre.pr_state == PROBE) & (post.pr_state == REPLICATE)),
+        cnt((pre.pr_state != SNAPSHOT) & (post.pr_state == SNAPSHOT)),
+        cnt((pre.pr_state != PROBE) & (post.pr_state == PROBE)),
+        started.to(I32),
+        won.to(I32),
+        post.commit - pre.commit,
+        (post.read_ready & ~pre.read_ready).to(I32),
+        (n_new.clamp(min=0) - appended).clamp(min=0),
+        post.fenced.to(I32),
+        # conf_changes_applied: zero on the device (entry types live in
+        # the host arena; the host counts where it stages masks).
+        torch.zeros_like(post.commit),
+    )
+    assert len(cols) == NUM_COUNTERS
+    return TelemetryFrame(torch.stack(cols, dim=-1),
+                          invariant_bits(post, ids.slot))
+
+
+class _FleetRows(NamedTuple):
+    """What the fleet frame needs of the rows' identities, fixed when
+    the round is built."""
+
+    layout: FleetLayout
+    group: torch.Tensor  # [N] i32 group id of each row
+    heat_bin: torch.Tensor  # [N] i64 heat column of each row
+    # [N] i64 N-1-row: a tie-break that ranks lower rows first.
+    tie_rank: torch.Tensor
+
+
+def _fleet_rows(cfg: BatchedConfig, ids: Ids) -> _FleetRows:
+    n = ids.iid.shape[0]
+    layout = FleetLayout(n, cfg.num_replicas, cfg.num_groups)
+    group = ids.iid // cfg.num_replicas
+    heat_bin = (group * layout.heat_bins // cfg.num_groups).long()
+    tie_rank = n - 1 - torch.arange(n, dtype=torch.int64,
+                                    device=ids.iid.device)
+    return _FleetRows(layout, group, heat_bin, tie_rank)
+
+
+def top_k_rows(values: torch.Tensor, k: int,
+               tie_rank: torch.Tensor) -> torch.Tensor:
+    """Indexes of the k largest int32 `values`, largest first and, among
+    equal values, lower rows first (jax.lax.top_k's order; torch.topk
+    leaves ties unordered). One topk over an int64 key that is unique
+    per row: value * 2^32 + (N-1-row)."""
+    key = values.to(torch.int64) * (1 << 32) + tie_rank
+    return key.topk(k).indices
+
+
+def _fleet_frame(cfg: BatchedConfig, ids: Ids, rows: _FleetRows,
+                 pre: BatchedState, post: BatchedState) -> torch.Tensor:
+    """The fleet summary frame: one flat [L] int32 vector in
+    obs/fleet.FleetLayout field order, every field a reduction across
+    rows (histograms, censuses, heat bins, top-k), so it costs O(L) on
+    the host whatever G is. A pure read of the round's pre/post
+    state."""
+    layout = rows.layout
+    delta = post.commit - pre.commit          # [N] commit progress
+    backlog = post.last - post.commit         # [N] uncommitted tail
+    is_leader = post.role == LEADER
+    # The leader's progress rows of tracked peers, self excluded.
+    lmask = _col(is_leader) & _repl_targets(post) & ~ids.is_self
+    ring_occ = post.last - post.snap_index    # live span of the ring
+    top = top_k_rows(backlog, layout.top_k, rows.tie_rank)
+
+    def heat(x):
+        # Integer adds, so the order of the atomics does not matter.
+        return torch.zeros(layout.heat_bins, dtype=I32,
+                           device=x.device).index_add_(0, rows.heat_bin, x)
+
+    def one(x):
+        return x.reshape(1)
+
+    roles = torch.arange(4, dtype=I32, device=post.role.device)
+    parts = {
+        "hist_commit_delta": log_bucket_counts(delta, FLEET_BUCKETS),
+        "hist_backlog": log_bucket_counts(backlog, FLEET_BUCKETS),
+        "hist_inflight": log_bucket_counts_masked(
+            post.inflight, FLEET_BUCKETS, lmask),
+        "hist_ring_occupancy": log_bucket_counts(ring_occ, FLEET_BUCKETS),
+        "ring_occ_max": one(ring_occ.max()),
+        "leader_slot": (ids.is_self & _col(is_leader)).sum(0, dtype=I32),
+        "role_census": (post.role.unsqueeze(-1) == roles).sum(0, dtype=I32),
+        "pr_census": torch.stack([
+            (lmask & (post.pr_state == s)).sum(dtype=I32)
+            for s in (PROBE, REPLICATE, SNAPSHOT)]),
+        "fenced": one(post.fenced.sum(dtype=I32)),
+        "term_min": one(post.term.min()),
+        "term_max": one(post.term.max()),
+        # An int32 sum, wrapping as the reference's does.
+        "term_sum": one(post.term.sum(dtype=I32)),
+        "heat_commit": heat(delta),
+        "heat_backlog": heat(backlog),
+        "top_group": rows.group[top],
+        "top_lag": backlog[top],
+        "top_commit": post.commit[top],
+        "top_applied": post.applied[top],
+        "top_term": post.term[top],
+        "top_role": post.role[top],
+        "top_lead": post.lead[top],
+    }
+    for name, length, _acc in layout.fields:
+        p = parts[name]
+        assert p.shape == (length,) and p.dtype == I32, (
+            f"fleet frame field {name}: {p.dtype}{tuple(p.shape)}")
+    return torch.cat([parts[name] for name, _l, _a in layout.fields])
+
+
 # The ROADMAP items that port what this module refuses.
 _NOT_PORTED = {
     "lanes": "ROADMAP A8 (the sender-scan deliver shapes)",
     "merged": "ROADMAP A8 (the sender-scan deliver shapes)",
-    "telemetry": "ROADMAP A7 (round planes: the telemetry frame)",
-    "fleet_summary": "ROADMAP A7 (round planes: the fleet frame)",
 }
 
 
@@ -1159,9 +1321,12 @@ def make_step_round(cfg: BatchedConfig, iids=None, slots=None,
                     with_aux: bool = False, device=None):
     """Build the round function:
 
-        state, outbox[, aux] = step(state, inbox, tick_mask, campaign_mask,
-                                    propose_n, isolate[, transfer_to,
-                                    read_req])
+        state, outbox[, aux][, telemetry][, fleet] = step(
+            state, inbox, tick_mask, campaign_mask, propose_n, isolate[,
+            transfer_to, read_req])
+
+(telemetry: a TelemetryFrame with cfg.telemetry; fleet: the [L] frame
+with cfg.fleet_summary.)
 
     Every tensor stays on one device; chain with route() for a
     closed-loop multi-raft simulation (the dense all-replica layout), or
@@ -1174,10 +1339,6 @@ def make_step_round(cfg: BatchedConfig, iids=None, slots=None,
         raise NotImplementedError(
             f"deliver_shape={cfg.deliver_shape!r} is not ported yet: "
             + _NOT_PORTED[cfg.deliver_shape])
-    for flag in ("telemetry", "fleet_summary"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}=True is not ported yet: {_NOT_PORTED[flag]}")
     if isinstance(iids, torch.Tensor) and device is None:
         dev = iids.device
     else:
@@ -1194,6 +1355,7 @@ def make_step_round(cfg: BatchedConfig, iids=None, slots=None,
     n = iids.shape[0]
     zero_i = torch.zeros((n,), dtype=I32, device=dev)
     zero_b = torch.zeros((n,), dtype=torch.bool, device=dev)
+    fleet_rows = _fleet_rows(cfg, ids) if cfg.fleet_summary else None
 
     def step(st: BatchedState, inbox: MsgSlots, tick_mask, campaign_mask,
              propose_n, isolate, transfer_to: Optional[torch.Tensor] = None,
@@ -1229,11 +1391,58 @@ def make_step_round(cfg: BatchedConfig, iids=None, slots=None,
             (st.commit > pre.commit) | (read_snap[2] & ~pre.read_ready))
         lease = torch.where(fresh, cfg.election_timeout, st.lease_ticks)
         st = st._replace(lease_ticks=torch.where(is_leader, lease, 0))
+        # The planes read the wide state and outbox.
+        planes = ()
+        if cfg.telemetry:
+            planes += (_telemetry_frame(ids, pre, st, inbox, out, last_tick,
+                                        propose_n),)
+        if cfg.fleet_summary:
+            planes += (_fleet_frame(cfg, ids, fleet_rows, pre, st),)
         if cfg.narrow_lanes:
             st = narrow_state(st)
             out = narrow_msgs(out)
-        if with_aux:
-            return st, out, StepAux(last_tick, *read_snap)
-        return st, out
+        aux = (StepAux(last_tick, *read_snap),) if with_aux else ()
+        return (st, out) + aux + planes
 
     return step
+
+
+# -----------------------------------------------------------------------------
+# Outbox packing (the hosted collect path)
+# -----------------------------------------------------------------------------
+
+# Words per wire record: [M, REC_WORDS] int32 rows whose little-endian
+# bytes are the wire record of the host codec (msgblock.REC_DTYPE of
+# the JAX package), so the host's collect is a view-cast.
+REC_WORDS = 9
+
+
+def pack_outbox(out: MsgSlots, slots: torch.Tensor):
+    """Pack an outbox [N, R, K] into wire-record words on its device.
+
+    Returns (words [M, REC_WORDS] i32, simple [M] bool, complex [M]
+    bool) with M = N*R*K flat slots: `simple` marks the messages a block
+    carries (all but MsgSnap), `complex` the MsgSnap slots that keep
+    the per-message path. `slots` [N] is each row's replica slot."""
+    # Narrow storage lanes widen first: an int8 `typ << 24` would wrap.
+    typ = out.type.to(I32)
+    n_ents = out.n_ents.to(I32)
+    n, r, k = typ.shape
+    dev = typ.device
+    rows = torch.arange(n, dtype=I32, device=dev).view(n, 1, 1)
+    to = torch.arange(1, r + 1, dtype=I32, device=dev).view(1, r, 1)
+    frm = (slots.to(I32) + 1).view(n, 1, 1)
+    # Unroutable types pack lane 0; they are never valid, so the host
+    # drops them (a -1 lane would smear into the type byte).
+    lane_of = torch.as_tensor(np.maximum(LANE_OF, 0).astype(np.int32),
+                              device=dev)
+    lane = lane_of[typ.clamp(0, NUM_WIRE_TYPES - 1).long()]
+    # Little-endian byte lanes of the record's one-byte fields.
+    w_addr = to | (frm << 8) | (lane << 16) | (typ << 24)
+    w_flags = out.reject.to(I32) | (torch.where(typ == T_APP, n_ents, 0) << 8)
+    words = torch.stack(torch.broadcast_tensors(
+        rows, w_addr, w_flags, out.term, out.log_term, out.index,
+        out.commit, out.reject_hint, out.ctx), dim=-1)
+    simple = (out.valid & (typ != T_SNAP)).reshape(-1)
+    cplx = (out.valid & (typ == T_SNAP)).reshape(-1)
+    return words.reshape(-1, REC_WORDS), simple, cplx

@@ -24,9 +24,11 @@ def _sync(eng) -> None:
         torch.cuda.synchronize(eng.device)
 
 
-def bench_config(groups: int) -> BatchedConfig:
+def bench_config(groups: int, telemetry: bool = False,
+                 fleet: bool = False) -> BatchedConfig:
     """The canonical bench config: R=3, W=32, E=4, P=2, steady state with
-    no timer elections, auto-compacting ring."""
+    no timer elections, auto-compacting ring; `telemetry` and `fleet`
+    add the telemetry and fleet summary planes to the round."""
     return BatchedConfig(
         num_groups=groups,
         num_replicas=3,
@@ -36,14 +38,18 @@ def bench_config(groups: int) -> BatchedConfig:
         election_timeout=1 << 20,  # steady state: no timer elections
         heartbeat_timeout=4,
         auto_compact=True,  # sustained load: ring chases the applied mark
+        telemetry=telemetry,
+        fleet_summary=fleet,
     )
 
 
-def make_bench_engine(groups: int, device=None):
+def make_bench_engine(groups: int, telemetry: bool = False,
+                      fleet: bool = False, device=None):
     """Build the canonical bench engine, elect every group's slot-0
     replica, and return the engine plus the steady
-    2-entries-per-group-per-round proposal vector."""
-    cfg = bench_config(groups)
+    2-entries-per-group-per-round proposal vector. The headline number
+    runs with both planes off; `telemetry`/`fleet` measure their cost."""
+    cfg = bench_config(groups, telemetry, fleet)
     eng = MultiRaftEngine(cfg, device=device)
     eng.campaign(range(0, cfg.num_instances, cfg.num_replicas))
     eng.run_rounds(4, tick=False)
@@ -55,14 +61,22 @@ def make_bench_engine(groups: int, device=None):
     return eng, props
 
 
-def measure_rate(eng, props, rounds_per_call: int, calls: int) -> float:
-    """Steady-state group-rounds/s over `calls` run_rounds calls of
-    `rounds_per_call` rounds each, after one warm-up call."""
+def measure_rate(eng, props, rounds_per_call: int, calls: int,
+                 pipelined: bool = False) -> float:
+    """Steady-state group-rounds/s after one warm-up call (which
+    captures the round's graph on CUDA): `calls` run_rounds calls of
+    `rounds_per_call` rounds each, or one run_rounds_pipelined pass of
+    as many rounds with chunk == rounds_per_call."""
     eng.run_rounds(rounds_per_call, tick=True, propose_n=props)  # warmup
     _sync(eng)
     t0 = time.perf_counter()
-    for _ in range(calls):
-        eng.run_rounds(rounds_per_call, tick=True, propose_n=props)
+    if pipelined:
+        eng.run_rounds_pipelined(rounds_per_call * calls,
+                                 chunk=rounds_per_call, tick=True,
+                                 propose_n=props)
+    else:
+        for _ in range(calls):
+            eng.run_rounds(rounds_per_call, tick=True, propose_n=props)
     _sync(eng)
     dt = time.perf_counter() - t0
     return eng.cfg.num_groups * rounds_per_call * calls / dt

@@ -14,9 +14,10 @@ its kernels with these functions.
 
 runs the forms of checkout OLD, then NEW, NEW, OLD, each in a process
 of its own on one GPU, holds every result equal to this checkout's
-plain forms, and prints one JSON line per run, the card's name and
-power limit, and last a JSON line with each side's mean of its two
-runs.
+plain forms, and runs each checkout's bench twin
+(``etcd_tpu_torch.tools.bench``) in the same turns. It prints one JSON
+line per run, the card's name and power limit, and last a JSON line
+with each side's mean of its two runs.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import functools
 import importlib
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -319,17 +321,17 @@ def main(argv) -> int:
         return 2
     a, b = argv
     runs = {a: [], b: []}
+    benches = {a: [], b: []}
     for tree in (a, b, b, a):
-        proc = subprocess.run(
+        rec = json.loads(_last_line(
             [sys.executable, "-m", "etcd_tpu_torch.tools.kernel_times",
-             "--one", str(Path(tree).resolve())], cwd=ROOT,
-            capture_output=True, text=True, timeout=600, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{tree} failed:\n{proc.stderr[-4000:]}")
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+             "--one", str(Path(tree).resolve())], ROOT))
         rec["tree"] = tree
         print(json.dumps(rec), flush=True)
         runs[tree].append(rec["forms"])
+        bench = bench_run(tree)
+        print(json.dumps(bench), flush=True)
+        benches[tree].append(bench)
     print(device_label(torch.device("cuda", 0)))
     summary = {}
     for tree, recs in runs.items():
@@ -337,8 +339,31 @@ def main(argv) -> int:
             key: {m: statistics.mean(r[key][m] for r in recs)
                   for m in ("ms", "cold_ms", "call_ms", "bound_ms")}
             for key in recs[0]}
+        summary[tree]["bench"] = {
+            m: statistics.mean(r[m] for r in benches[tree])
+            for m in ("group_rounds_per_s", "commit_p50_ms")}
     print(json.dumps({"ab": summary}))
     return 0
+
+
+def _last_line(cmd, cwd) -> str:
+    proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                          timeout=600, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd} in {cwd} failed:\n{proc.stderr[-4000:]}")
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def bench_run(tree: str) -> dict:
+    """One run of the bench twin of the checkout at `tree`, in a process
+    of its own: its group-rounds/s and commit p50."""
+    rec = json.loads(_last_line(
+        [sys.executable, "-m", "etcd_tpu_torch.tools.bench"],
+        Path(tree).resolve()))
+    p50 = re.search(r"commit_p50=([0-9.]+)ms/(\d+)r", rec["unit"])
+    return {"tree": tree, "group_rounds_per_s": rec["value"],
+            "commit_p50_ms": float(p50.group(1)),
+            "commit_p50_rounds": int(p50.group(2)), "unit": rec["unit"]}
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from etcd_tpu_torch.batched import hopper_kernels as hk
 from etcd_tpu_torch.batched import kernels as tk
 from etcd_tpu_torch.batched.engine import MultiRaftEngine
@@ -238,3 +239,72 @@ def test_round_on_cuda_equals_round_on_cpu(dev):
 def test_engine_defaults_to_the_gpu(dev):
     eng = MultiRaftEngine(bench_config(2))
     assert eng.state.term.is_cuda and eng.inbox.valid.is_cuda
+
+
+# -- the engine's closed loop as a CUDA graph --------------------------------------
+
+
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("config", ["bench", "prevote_cq"])
+def test_graph_replays_equal_eager_rounds(dev, config, planes):
+    """run_rounds through the captured graph against as many eager
+    step_rounds, with campaign, set_membership, read_index and
+    drain_fleet between the closed-loop calls: every buffer and plane
+    equal after every call (chip_smoke.graph_vs_eager), one capture per
+    tick value."""
+    cfg = chip_smoke.parity_configs(64, planes)[config]
+    res = chip_smoke.graph_vs_eager(cfg, dev, seed=3)
+    assert res["captures"] == 2 and res["rounds"] == 44
+
+
+def test_graph_replays_count_the_launches_of_an_eager_round(dev):
+    cfg = chip_smoke.parity_configs(64)["bench"]
+    eng = MultiRaftEngine(cfg, device=dev)
+    eng.campaign(range(0, cfg.num_instances, 3))
+    hk.reset_launches()
+    eng.step_round(tick=True)
+    eager = (dict(hk.LAUNCHES), dict(hk.FORM_LAUNCHES))
+    hk.reset_launches()
+    eng.run_rounds(1, tick=True)  # an eager round, then the capture
+    eng.run_rounds(6, tick=True)
+    assert eng.captures == 1
+    assert hk.LAUNCHES == {k: 7 * v for k, v in eager[0].items()}
+    assert dict(hk.FORM_LAUNCHES) == {k: 7 * v for k, v in eager[1].items()}
+
+
+def test_pipelined_equals_serial_on_the_card(dev):
+    cfg = chip_smoke.parity_configs(64, planes=True)["bench"]
+    props = torch.zeros(cfg.num_instances, dtype=torch.int32, device=dev)
+    props[::3] = 2
+    engines = [MultiRaftEngine(cfg, device=dev) for _ in range(2)]
+    for eng in engines:
+        eng.campaign(range(0, cfg.num_instances, 3))
+    engines[0].run_rounds(30, propose_n=props)
+    engines[1].run_rounds_pipelined(30, chunk=4, depth=2, propose_n=props)
+    torch.cuda.synchronize()
+    chip_smoke.assert_engines_equal(*engines, "pipelined")
+    with pytest.raises(ValueError, match="chunk"):
+        engines[1].run_rounds_pipelined(3, chunk=0)
+
+
+def test_one_capture_per_tick_value(dev):
+    eng = MultiRaftEngine(bench_config(8), device=dev)
+    for tick in (True, True, False, True, False):
+        eng.run_rounds(3, tick=tick)
+    assert eng.captures == 2 and len(eng.capture_stats) == 2
+    assert eng.rounds == 15
+
+
+def test_replays_make_no_host_sync(dev):
+    cfg = chip_smoke.parity_configs(64, planes=True)["prevote_cq"]
+    eng = MultiRaftEngine(cfg, device=dev)
+    props = torch.ones(cfg.num_instances, dtype=torch.int32, device=dev)
+    eng.run_rounds(2, propose_n=props)  # capture outside the check
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run_rounds(10, propose_n=props)
+        eng.run_rounds_pipelined(10, chunk=5, depth=4, propose_n=props)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert eng.rounds == 22

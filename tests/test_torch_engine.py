@@ -111,7 +111,30 @@ def test_bench_result_is_one_json_line():
     assert rec["metric"] == "raft_groups_stepped_per_sec"
     assert rec["value"] == rate > 0
     assert "(cpu, G=8, R=3, deliver=vectorized" in rec["unit"]
+    assert "loop=serial, telemetry=off, fleet=off" in rec["unit"]
     assert "quorum_commit_vote=0, term_at_batch=0" in rec["unit"]
+
+
+def test_bench_reads_the_jax_bench_variables(monkeypatch):
+    """BENCH_PIPELINE, BENCH_TELEMETRY and BENCH_FLEET, 0 or 1 as in
+    bench.py, and the unit names the loop and the planes."""
+    monkeypatch.setenv("BENCH_TELEMETRY", "1")
+    monkeypatch.setenv("BENCH_FLEET", "0")
+    monkeypatch.delenv("BENCH_PIPELINE", raising=False)
+    assert bench.env_flag("BENCH_TELEMETRY")
+    assert not bench.env_flag("BENCH_FLEET")
+    assert not bench.env_flag("BENCH_PIPELINE")
+    monkeypatch.setenv("BENCH_PIPELINE", "yes")
+    with pytest.raises(SystemExit, match="BENCH_PIPELINE must be 0|1"):
+        bench.env_flag("BENCH_PIPELINE")
+    eng, props = benchlib.make_bench_engine(4, telemetry=True, fleet=True,
+                                            device="cpu")
+    rate = benchlib.measure_rate(eng, props, rounds_per_call=2, calls=2,
+                                 pipelined=True)
+    assert eng.rounds == 1 + 4 + 2 + 4
+    unit = json.loads(bench.result_line(eng, rate, 1.0, 3, {},
+                                        pipelined=True))["unit"]
+    assert "loop=pipelined, telemetry=on, fleet=on" in unit
 
 
 def test_port_imports_no_jax():

@@ -387,9 +387,7 @@ def test_aux_reports_pre_propose_watermark():
 
 
 @pytest.mark.parametrize("change", [dict(deliver_shape="lanes"),
-                                    dict(deliver_shape="merged"),
-                                    dict(telemetry=True),
-                                    dict(fleet_summary=True)])
+                                    dict(deliver_shape="merged")])
 def test_unported_options_are_refused(change):
     cfg = tstate.BatchedConfig(**SUSTAINED)._replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
