@@ -8,15 +8,19 @@ one against its plain PyTorch version on the card, drives the main path
 proposals through the engine's CUDA graph of one round, commit p50),
 profiles the graphed round beside the eager one, holds graph replays
 against eager rounds, runs the main path again with the telemetry and
-fleet planes on, and holds the whole round on CUDA against the same
-round on the CPU. Each phase prints one line; any failure raises and the
-script exits non-zero. It needs CUDA: without it, it prints no result
-and exits non-zero.
+fleet planes on, holds the whole round on CUDA against the same round
+on the CPU, drives the hosted path (three BatchedRawNode members of
+G=65,536 groups each, every member's round a graph replay, proposals
+with payloads committed on every member) and holds hosted members on
+CUDA against hosted members on the CPU. Each phase prints one line; any
+failure raises and the script exits non-zero. It needs CUDA: without
+it, it prints no result and exits non-zero.
 
 Line protocol (stdout): one line per phase (the kernels phase times
 every main-path form warm and L2-cold; the slice phase counts launches
 per kernel and per form), then a JSON line {"kernels": [...]} with every
-kernel's launches on the main path and, at its most launched form, its
+kernel's launches on the main paths (the engine's and the hosted one,
+each counted from 0 around its run) and, at its most launched form, its
 device time warm and cold, plain-version time and bound; then the
 card's name and power limit as nvidia-smi reports them; then, last,
 {"ok": true, "device": {...}}.
@@ -29,7 +33,9 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import deque
 
+import numpy as np
 import torch
 
 MAIN_GROUPS = 65536
@@ -112,10 +118,11 @@ def check_kernels(dev) -> "tuple[list, dict]":
     return variants, err
 
 
-def kernel_rows(variants: list, err: dict, launches: dict,
-                forms: dict) -> list:
+def kernel_rows(variants: list, err: dict, launches: dict, forms: dict,
+                hosted: dict) -> list:
     """The kernels line: each kernel at its most launched form on the
-    main path."""
+    main path; its launches are those of the engine's main path (slice)
+    and of the hosted path, each counted from 0 around its own run."""
     rows = []
     for name, line in (("quorum_commit_vote", 90), ("term_at_batch", 142)):
         top = max((v for v in variants if v["form"].startswith(name + " ")),
@@ -124,7 +131,10 @@ def kernel_rows(variants: list, err: dict, launches: dict,
             "name": name, "route": "cuda",
             "source": "etcd_tpu_torch/batched/csrc/quorum_ring.cu",
             "replaces": f"etcd_tpu/batched/pallas_kernels.py:{line}",
-            "launches": launches[name], "max_abs_err": err[name],
+            "launches": launches[name] + hosted[name],
+            "launches_by_path": {"slice": launches[name],
+                                 "hosted": hosted[name]},
+            "max_abs_err": err[name],
             "ms": top["ms"], "cold_ms": top["cold_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
@@ -512,6 +522,445 @@ def run_parity(dev, plain_dev=torch.device("cpu")) -> None:
             max_commit=int(st.commit.max()), max_term=int(st.term.max()))
 
 
+# -- phase: hosted (the rawnode members at full size) ---------------------------
+
+MEMBERS = (1, 2, 3)
+PAYLOAD_BYTES = 64
+LOAD_ROUNDS = 4
+PROPS_PER_ROUND = 2  # proposals per group per load round
+
+
+def hosted_members(cfg, dev) -> dict:
+    """Three members in one process, member `mid` holding replica slot
+    mid-1 of every group (the hosting layout: rows = G)."""
+    from etcd_tpu_torch.batched.rawnode import BatchedRawNode
+
+    g = cfg.num_groups
+    return {mid: BatchedRawNode(cfg, groups=np.arange(g, dtype=np.int32),
+                                slots=np.full(g, mid - 1, np.int32),
+                                device=dev)
+            for mid in MEMBERS}
+
+
+def route(rns: dict, rd) -> None:
+    """The synchronous router of a hosted round: each sub-block of the
+    Ready's block to its target member's step_block, each message
+    (MsgSnap only) to its target's step after the app-state restore
+    hosting does first (install_snapshot_state)."""
+    from etcd_tpu_torch.batched.step import T_SNAP
+
+    blk = rd.msg_block
+    if blk is not None and len(blk):
+        for to, sub in sorted(blk.split_by_target().items()):
+            rns[to].step_block(sub)
+    for row, m in rd.messages:
+        if int(m.type) == T_SNAP:
+            rns[m.to].install_snapshot_state(row, m.snapshot.metadata.index)
+        rns[m.to].step(row, m)
+
+
+def ready_digest(rd) -> tuple:
+    """Everything protocol-visible in one Ready, hashable (payloads,
+    entry types and frame bytes included)."""
+    return (
+        tuple(rd.hardstates), tuple(iter(rd.entries)),
+        tuple((row, tuple(items)) for row, items in rd.committed),
+        tuple((row, int(m.type), m.to, m.from_, m.index, m.term, m.log_term,
+               m.commit, m.reject, m.reject_hint, m.context,
+               m.snapshot.metadata.index, m.snapshot.metadata.term)
+              for row, m in rd.messages),
+        None if rd.msg_block is None else rd.msg_block.to_bytes(),
+        tuple(rd.read_states), tuple(rd.read_opened), tuple(rd.snapshots),
+        tuple((row, ring.tobytes()) for row, ring in
+              sorted(rd.snap_rings.items())),
+        rd.must_sync, rd.contains_updates())
+
+
+class Harness:
+    """The host side of the hosted main path: per member it persists the
+    Ready's hardstates and entries (host dicts, as a WAL would) before
+    the messages are routed, then applies the committed entries, each
+    checked against what that member persisted in this Ready or an
+    earlier one. It records each group's proposals and each member's
+    committed payloads, and the commit latency of every proposal on its
+    group's leader."""
+
+    def __init__(self, rns: dict):
+        n = next(iter(rns.values())).n
+        self.rns = rns
+        self.hard = {mid: {} for mid in rns}
+        self.log = {mid: [{} for _ in range(n)] for mid in rns}
+        self.applied = {mid: [[] for _ in range(n)] for mid in rns}
+        self.proposed = [[] for _ in range(n)]
+        self.inflight = [deque() for _ in range(n)]  # (round, t) per proposal
+        self.lat_rounds, self.lat_ms = [], []
+        self.rounds = 0
+        self.times = {mid: {k: [] for k in (
+            "stage", "step", "extract", "collect", "harness", "advance")}
+            for mid in rns}
+        self.round_ms = []
+
+    def propose(self, rng, per_group: int) -> None:
+        """`per_group` seeded 64-byte payloads on every group's leader
+        (group g is led by member g mod 3 + 1)."""
+        n = len(self.proposed)
+        buf = rng.bytes(PAYLOAD_BYTES * per_group * n)
+        now = time.perf_counter()
+        for g in range(n):
+            rn = self.rns[g % len(MEMBERS) + 1]
+            for k in range(per_group):
+                off = (g * per_group + k) * PAYLOAD_BYTES
+                data = buf[off:off + PAYLOAD_BYTES]
+                rn.propose(g, data)
+                self.proposed[g].append(data)
+                self.inflight[g].append((self.rounds, now))
+
+    def member_round(self, mid: int) -> None:
+        """One member's round: advance_round, the harness (persist,
+        route, apply) and advance, each timed."""
+        rn = self.rns[mid]
+        rd = rn.advance_round()
+        t0 = time.perf_counter()
+        times = self.times[mid]
+        for k, v in rn.phase_last.items():
+            times[k].append(v * 1e3)
+        hard, log = self.hard[mid], self.log[mid]
+        for row, term, vote, commit in rd.hardstates:
+            hard[row] = (term, vote, commit)
+        for row, idx, term, data, _etype in rd.entries:
+            log[row][idx] = (term, data)
+        route(self.rns, rd)
+        now = time.perf_counter()
+        applied = self.applied[mid]
+        for row, items in rd.committed:
+            lead = row % len(MEMBERS) + 1 == mid
+            for idx, term, data, _etype in items:
+                if log[row].get(idx) != (term, data or b""):
+                    raise AssertionError(
+                        f"member {mid} row {row}: committed entry {idx} was "
+                        "not persisted first")
+                if data is not None:
+                    applied[row].append(data)
+                    if lead:
+                        rnd, t = self.inflight[row].popleft()
+                        self.lat_rounds.append(self.rounds - rnd + 1)
+                        self.lat_ms.append((now - t) * 1e3)
+        t1 = time.perf_counter()
+        times["harness"].append((t1 - t0) * 1e3)
+        rn.advance()
+        times["advance"].append((time.perf_counter() - t1) * 1e3)
+
+    def round(self, profile: bool = False) -> dict:
+        """One hosted round: every member ticks and advances once, in
+        order. With `profile`, each member's round runs under the
+        profiler and the round's time is not kept; returns each
+        member's device times then."""
+        for rn in self.rns.values():
+            rn.tick()
+        t0 = time.perf_counter()
+        device = {}
+        for mid in self.rns:
+            if profile:
+                device[mid] = profile_member_round(self, mid)
+            else:
+                self.member_round(mid)
+        if not profile:
+            self.round_ms.append((time.perf_counter() - t0) * 1e3)
+        self.rounds += 1
+        return device
+
+    def quiet(self) -> bool:
+        commits = [rn.m_commit for rn in self.rns.values()]
+        return (all(len(a) == len(p) for app in self.applied.values()
+                    for a, p in zip(app, self.proposed))
+                and all((c == commits[0]).all() for c in commits))
+
+    def check(self) -> None:
+        """Every proposal committed on every member exactly once, in
+        order, with its bytes; equal commit indexes on all members."""
+        for mid, app in self.applied.items():
+            bad = [g for g, (a, p) in enumerate(zip(app, self.proposed))
+                   if a != p]
+            if bad:
+                raise AssertionError(
+                    f"member {mid}: groups {bad[:5]} committed "
+                    f"{[len(app[g]) for g in bad[:5]]} of "
+                    f"{[len(self.proposed[g]) for g in bad[:5]]} proposals, "
+                    "or not in order")
+        commits = [rn.m_commit for rn in self.rns.values()]
+        if not all((c == commits[0]).all() for c in commits):
+            raise AssertionError("members' commit indexes differ")
+
+
+def elect_balanced(h: Harness, max_rounds: int = 8) -> int:
+    """Group g campaigns on member g mod 3 + 1; rounds until each group
+    has its leader."""
+    from etcd_tpu_torch.batched.state import LEADER
+
+    n = len(h.proposed)
+    for mid, rn in h.rns.items():
+        rn.campaign(np.arange(mid - 1, n, len(MEMBERS)))
+    for rnd in range(max_rounds):
+        h.round()
+        if all((rn.m_role[mid - 1::len(MEMBERS)] == LEADER).all()
+               for mid, rn in h.rns.items()):
+            return rnd + 1
+    raise AssertionError("balanced election did not complete")
+
+
+def load_and_drain(h: Harness, rng, load_rounds: int, max_drain: int = 16,
+                   during=None) -> int:
+    """`load_rounds` rounds with PROPS_PER_ROUND proposals per group, then
+    rounds until quiet; `during(i)`, if given, runs load round i in
+    place of h.round(). Returns the drain rounds."""
+    for i in range(load_rounds):
+        h.propose(rng, PROPS_PER_ROUND)
+        if during is None:
+            h.round()
+        else:
+            during(i)
+    for k in range(max_drain):
+        if h.quiet():
+            return k
+        h.round()
+    raise AssertionError(f"not quiet after {max_drain} drain rounds")
+
+
+def profile_member_round(h: Harness, mid: int) -> dict:
+    """Device time of one rawnode round of member `mid` (its graph replay
+    and its copies), CUDA activity through torch.profiler; the harness
+    work of that member round runs inside the session too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from etcd_tpu_torch.tools.kernel_times import _device_us, kernel_events
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h.member_round(mid)
+        torch.cuda.synchronize()
+    events = kernel_events(prof)
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if e not in copies]
+    if not kernels:
+        return {"device_ms": "not measured"}
+    return {"device_ms": sum(_device_us(e) for e in kernels) / 1e3,
+            "device_kernels": sum(e.count for e in kernels),
+            "copy_ms": sum(_device_us(e) for e in copies) / 1e3,
+            "copies": {e.key: e.count for e in copies},
+            "hopper_kernels": {
+                e.key: {"calls": e.count,
+                        "device_us_per_call": _device_us(e) / e.count}
+                for e in kernels if "quorum_commit_vote" in e.key
+                or "term_at_batch" in e.key}}
+
+
+def run_hosted(dev, groups: int = MAIN_GROUPS,
+               load_rounds: int = LOAD_ROUNDS) -> dict:
+    """The hosted main path: three members of BatchedRawNode x `groups`
+    (the bench config), balanced leaders, PROPS_PER_ROUND 64-byte
+    proposals per group per round for `load_rounds` rounds, drained until
+    quiet; then a short run with telemetry on. Returns the kernel launches
+    of the main run."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.tools.benchlib import bench_config
+
+    cuda = dev.type == "cuda"
+    rng = np.random.RandomState(SEED)
+    t0 = time.perf_counter()
+    h = Harness(hosted_members(bench_config(groups), dev))
+    setup_s = time.perf_counter() - t0
+    elect_rounds = elect_balanced(h)
+    hk.reset_launches()
+    base_rounds = h.rounds
+    h.round_ms.clear()
+    for t in h.times.values():
+        for v in t.values():
+            v.clear()
+    device = {}
+
+    def during(i):
+        # Load round 1 runs under the profiler, member by member.
+        if cuda and i == 1:
+            device.update(h.round(profile=True))
+        else:
+            h.round()
+
+    t0 = time.perf_counter()
+    drain = load_and_drain(h, rng, load_rounds, during=during)
+    wall_s = time.perf_counter() - t0
+    rounds = h.rounds - base_rounds
+    launches = dict(hk.LAUNCHES)
+    forms = dict(hk.FORM_LAUNCHES)
+    h.check()
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on the hosted "
+                                 "path")
+    captures = {mid: rn.captures for mid, rn in h.rns.items()}
+    if cuda and set(captures.values()) != {1}:
+        raise AssertionError(f"captures per member: {captures}")
+    committed = sum(map(len, h.proposed))
+    lat_r, lat_ms = np.asarray(h.lat_rounds), np.asarray(h.lat_ms)
+    if len(lat_r) != committed:
+        raise AssertionError("a proposal's commit was not seen on its leader")
+    result = dict(
+        groups=groups, members=len(MEMBERS),
+        config="bench (R=3, W=32, E=4, P=2, HB=4, auto-compaction)",
+        setup_s=setup_s, election_rounds=elect_rounds,
+        load_rounds=load_rounds, drain_rounds=drain, rounds=rounds,
+        wall_ms_per_hosted_round=statistics.median(h.round_ms),
+        wall_ms_per_hosted_round_runs=h.round_ms,
+        phase_ms_median={mid: {k: statistics.median(v) for k, v in t.items()}
+                         for mid, t in h.times.items()},
+        device_per_member_round=device,
+        entries_committed=committed,
+        entries_committed_per_s=committed / wall_s,
+        commit_latency_rounds={"p50": float(np.percentile(lat_r, 50)),
+                               "p99": float(np.percentile(lat_r, 99))},
+        commit_latency_ms={"p50": float(np.percentile(lat_ms, 50)),
+                           "p99": float(np.percentile(lat_ms, 99))},
+        launches=launches,
+        launches_per_rawnode_round={k: v / (rounds * len(MEMBERS))
+                                    for k, v in launches.items()},
+        form_launches_per_rawnode_round={
+            k: v / (rounds * len(MEMBERS)) for k, v in forms.items()},
+        capture_s={mid: [c["seconds"] for c in rn.capture_stats]
+                   for mid, rn in h.rns.items()})
+    del h
+    # A short run with telemetry on: no invariant bit set in any frame.
+    ht = Harness(hosted_members(bench_config(groups, telemetry=True), dev))
+    elect_balanced(ht)
+    trips = []
+
+    def tel_round(_i):
+        ht.round()
+        trips.extend(int((rn.last_frame[1] != 0).sum())
+                     for rn in ht.rns.values())
+
+    load_and_drain(ht, rng, 1, during=tel_round)
+    ht.check()
+    if any(trips):
+        raise AssertionError(f"invariant bits set with telemetry on: {trips}")
+    del ht
+    log("hosted", **result, telemetry_rows_tripped=sum(trips),
+        card=smi("name,power.limit") if cuda else str(dev))
+    return launches
+
+
+# -- phase: hosted_parity (rawnodes on CUDA vs rawnodes on the CPU) ----------
+
+
+def leaders_of(rns: dict) -> dict:
+    """group -> member id of its leader, from the members' mirrors."""
+    from etcd_tpu_torch.batched.state import LEADER
+
+    return {row: mid for mid, rn in rns.items()
+            for row in np.nonzero(rn.m_role == LEADER)[0].tolist()}
+
+
+def hosted_schedule(rnd: int, rns: dict, cfg) -> None:
+    """Round `rnd`'s staged inputs for one member set, a function of the
+    round and the set's own mirrors (equal sets get equal inputs):
+    balanced campaigns (timer elections under pre-vote), a tick, seeded
+    proposals with some conf-change etypes on each group's leader, and
+    the staged edits: ReadIndex, a leader transfer, membership masks,
+    a fence, compaction with append pokes, and a member cut off from 32
+    groups for long enough to be sent MsgSnap."""
+    g = cfg.num_groups
+    if rnd == 0 and not cfg.pre_vote:
+        for mid, rn in rns.items():
+            rn.campaign(np.arange(mid - 1, g, len(MEMBERS)))
+    for rn in rns.values():
+        rn.tick()
+    lead = leaders_of(rns)
+    rng = np.random.RandomState(SEED + rnd)
+    for grp in sorted(lead):
+        for _ in range(int(rng.randint(0, cfg.max_props_per_round + 1))):
+            rns[lead[grp]].propose(grp, rng.bytes(16),
+                                   etype=int(rng.rand() < 0.1))
+    if rnd == 8:
+        for grp in range(16):
+            if grp in lead:
+                rns[lead[grp]].read_index(grp)
+    if rnd == 10 and 1 in lead:
+        rns[lead[1]].transfer_leader(1, lead[1] % len(MEMBERS))
+    if rnd in (12, 18):
+        voter = np.ones((4, R), bool)
+        learner = np.zeros((4, R), bool)
+        if rnd == 12:
+            voter[:, 2], learner[:, 2] = False, True
+        for rn in rns.values():
+            rn.set_membership_many(np.arange(2, 6), voter,
+                                   np.zeros((4, R), bool), learner,
+                                   np.zeros(4, bool))
+    if rnd in (13, 17):
+        rns[2].set_fence(7, rnd == 13)
+    if rnd == 14:
+        for grp in range(4):
+            if grp in lead:
+                rn = rns[lead[grp]]
+                rn.compact(grp, int(rn.m_commit[grp]) - 1)
+                rn.poke_append(grp)
+    if rnd in (20, 32):
+        rns[3].isolate(np.arange(32), on=rnd == 20)
+
+
+def assert_members_equal(a, b, context: str) -> None:
+    """Every device state field (value and dtype) and host mirror of two
+    rawnodes equal."""
+    for f, x, y in zip(a.state._fields, a.state, b.state):
+        x, y = x.cpu(), y.cpu()
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{context}: state.{f} differs")
+    for f in ("m_term", "m_vote", "m_commit", "m_last", "m_snap", "m_role",
+              "m_lead", "m_ring", "m_lease_ticks", "applied", "stable"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{context}: {f} differs")
+
+
+def hosted_lockstep(cfg, sets: list, rounds: int, label: str) -> dict:
+    """Member sets driven through hosted_schedule in lockstep, each set
+    routing its own traffic; after every member round the sets' Ready
+    digests and each member's state and mirrors are equal."""
+    snaps = 0
+    for rnd in range(rounds):
+        for rns in sets:
+            hosted_schedule(rnd, rns, cfg)
+        for mid in MEMBERS:
+            digests = []
+            for rns in sets:
+                rd = rns[mid].advance_round()
+                route(rns, rd)
+                rns[mid].advance()
+                digests.append(ready_digest(rd))
+            snaps += len(rd.snapshots)
+            context = f"{label} round {rnd} member {mid}"
+            if any(d != digests[0] for d in digests[1:]):
+                raise AssertionError(f"{context}: Readys differ")
+            for rns in sets[1:]:
+                assert_members_equal(sets[0][mid], rns[mid], context)
+    rns = sets[0]
+    return {"rounds": rounds, "snapshots_installed": snaps,
+            "leaders": len(leaders_of(rns)),
+            "max_commit": int(max(rn.m_commit.max() for rn in rns.values())),
+            "captures": {mid: rn.captures for mid, rn in rns.items()}}
+
+
+def run_hosted_parity(dev, plain_dev=torch.device("cpu")) -> None:
+    """Three members on `dev` (on CUDA: a graph replay per round) against
+    three on the CPU, G=256, in the bench and prevote_cq configs."""
+    for label, cfg in parity_configs(256).items():
+        res = hosted_lockstep(cfg, [hosted_members(cfg, dev),
+                                    hosted_members(cfg, plain_dev)], 40,
+                              label)
+        if dev.type == "cuda" and set(res["captures"].values()) != {1}:
+            raise AssertionError(f"hosted_parity {label}: {res['captures']}")
+        if res["leaders"] != 256 or not res["snapshots_installed"]:
+            raise AssertionError(f"hosted_parity {label}: {res}")
+        log("hosted_parity", config=label, groups=256, equal=True, **res)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
@@ -534,8 +983,10 @@ def main() -> int:
     run_graph(dev)
     run_planes(dev, base_device_ms)
     run_parity(dev)
+    hosted = run_hosted(dev)
+    run_hosted_parity(dev)
     print(json.dumps({"kernels": kernel_rows(variants, err, launches,
-                                             forms)}))
+                                             forms, hosted)}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@ lockstep, one row per replica instance:
 - ``telemetry``: the telemetry frame's counter and invariant layout.
 - ``engine``:  the closed-loop MultiRaftEngine (on CUDA, a replayed
                CUDA graph of one round).
+- ``rawnode``: BatchedRawNode, the hosted entry point (stage → round →
+               BatchedReady → advance; on CUDA a graph replay per round).
+- ``msgblock``: the SoA message codec (frames byte-equal to etcd_tpu's).
+- ``graph``:   the capture, replay and write-back shared by the two.
 - ``convert``: state and messages to and from numpy.
 """
 

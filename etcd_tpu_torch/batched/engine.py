@@ -21,15 +21,14 @@ is eager.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import hopper_kernels as hk
 from ..obs.fleet import FleetLayout
+from .graph import RoundGraphs, storages, write_back
 from .state import LEADER, BatchedConfig, I32, init_state, resolve_device
 from .step import NUM_KINDS, empty_msgs, make_step_round, route_view
 from .telemetry import NUM_COUNTERS
@@ -86,15 +85,20 @@ class MultiRaftEngine:
             self._fleet_base = np.zeros(self._fleet_layout.size, np.int64)
         self.fleet_hub = None
         # The storages of the buffers a round's results go into.
-        self._storages = {x.untyped_storage().data_ptr()
-                          for x in tuple(self.state) + tuple(self.inbox)}
-        # tick -> (graph, launches of its round); one memory pool for
-        # all of them, since no graph's intermediates outlive a replay.
-        self._graphs = {}
-        self._pool = None
-        self.captures = 0  # CUDA graphs captured by this engine
-        self.capture_stats = []  # per capture: tick, seconds
+        self._storages = storages(tuple(self.state) + tuple(self.inbox))
+        # One CUDA graph of the closed-loop round per tick value.
+        self._graphs = RoundGraphs()
         self.rounds = 0  # rounds stepped since construction
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured by this engine."""
+        return self._graphs.captures
+
+    @property
+    def capture_stats(self) -> list:
+        """Per capture: tick, seconds."""
+        return self._graphs.capture_stats
 
     # -- one round -----------------------------------------------------------
 
@@ -117,21 +121,13 @@ class MultiRaftEngine:
 
     def _write_back(self, st, outbox) -> None:
         """Copy a round's state into the state buffers and route its
-        outbox into the inbox buffers, one copy per field. A result that
-        is its own buffer stays; one that shares storage with a buffer
-        in any other way is cloned first, so no copy overwrites a result
-        that a later copy reads (under a CUDA graph this check runs once,
-        at capture)."""
+        outbox into the inbox buffers, one copy per field
+        (graph.write_back)."""
         pairs = list(zip(self.state, st, strict=True))
         for buf, x in zip(self.inbox, outbox, strict=True):
             routed = route_view(self.cfg, x)
             pairs.append((buf.view(routed.shape), routed))
-        pairs = [(buf, x if x is buf
-                  or x.untyped_storage().data_ptr() not in self._storages
-                  else x.clone()) for buf, x in pairs]
-        for buf, x in pairs:
-            if x is not buf:
-                buf.copy_(x)
+        write_back(pairs, self._storages)
 
     # -- driving -------------------------------------------------------------
 
@@ -163,42 +159,16 @@ class MultiRaftEngine:
         else:
             self._props.copy_(propose_n)
 
-    def _capture(self, tick: bool):
-        """Capture one closed-loop round for `tick` into a CUDA graph
-        over the engine's buffers. A failed capture raises."""
-        ticks = self._ones_b if tick else self._zeros_b
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with hk.recorded_launches() as launches:
-            with torch.cuda.graph(graph, pool=self._pool):
-                self._round(ticks, self._zeros_b, self._props,
-                            self._zeros_b)
-        self._pool = graph.pool()
-        self.captures += 1
-        self.capture_stats.append({"tick": tick,
-                                   "seconds": time.perf_counter() - t0})
-        self._graphs[tick] = (graph, launches)
-        return self._graphs[tick]
-
     def _replay(self, rounds: int, tick: bool) -> None:
         """`rounds` closed-loop rounds through the graph for `tick`, on
-        the current stream, with no host sync. The first use of a tick
-        value runs one eager round, which loads every kernel the round
-        launches, and then captures."""
-        if rounds <= 0:
-            return
-        entry = self._graphs.get(tick)
-        if entry is None:
-            self._round(self._ones_b if tick else self._zeros_b,
-                        self._zeros_b, self._props, self._zeros_b)
-            self.rounds += 1
-            rounds -= 1
-            entry = self._capture(tick)
-        graph, launches = entry
-        for _ in range(rounds):
-            graph.replay()
-        hk.add_launches(launches, rounds)
-        self.rounds += rounds
+        the current stream, with no host sync (graph.RoundGraphs.run:
+        the first use of a tick value runs one eager round, then
+        captures)."""
+        ticks = self._ones_b if tick else self._zeros_b
+        self._graphs.run(tick, lambda: self._round(
+            ticks, self._zeros_b, self._props, self._zeros_b), rounds,
+            tick=tick)
+        self.rounds += max(rounds, 0)
 
     def run_rounds(self, rounds: int, tick: bool = True,
                    propose_n: Optional[torch.Tensor] = None) -> None:

@@ -1,0 +1,85 @@
+"""One round over buffers its owner keeps for its lifetime: the write
+of the round's results into those buffers and, on CUDA, the round's
+capture into a CUDA graph and its replays.
+
+Shared by the closed-loop engine (engine.py) and the hosted rawnode
+(rawnode.py). A graph replays fixed addresses, so an owner allocates
+one buffer per state, input and output field, its round body reads the
+inputs and writes every result into the buffers, and whatever the host
+changes between rounds it changes in place in those buffers. This is
+the counterpart of the JAX package's buffer donation.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Iterable, List, Set, Tuple
+
+import torch
+
+from . import hopper_kernels as hk
+
+
+def storages(tensors: Iterable[torch.Tensor]) -> Set[int]:
+    """The storage addresses of an owner's buffers."""
+    return {x.untyped_storage().data_ptr() for x in tensors}
+
+
+def write_back(pairs: List[Tuple[torch.Tensor, torch.Tensor]],
+               owned: Set[int]) -> None:
+    """Copy each result x into its buffer, one copy per (buffer, x)
+    pair. A result that is its own buffer stays; one that shares storage
+    with an owned buffer in any other way is cloned first, so no copy
+    overwrites a result that a later copy reads (under a CUDA graph this
+    check runs once, at capture)."""
+    pairs = [(buf, x if x is buf
+              or x.untyped_storage().data_ptr() not in owned
+              else x.clone()) for buf, x in pairs]
+    for buf, x in pairs:
+        if x is not buf:
+            buf.copy_(x)
+
+
+class RoundGraphs:
+    """CUDA graphs of a round body, one per key (for the engine, the
+    tick value), in one memory pool: no graph's intermediates outlive
+    its replay."""
+
+    def __init__(self) -> None:
+        self._graphs = {}
+        self._pool = None
+        self.captures = 0  # CUDA graphs captured
+        self.capture_stats: List[dict] = []  # per capture: info, seconds
+
+    def _capture(self, key, body: Callable[[], None], info: dict):
+        """Capture `body` for `key`. A failed capture raises."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with hk.recorded_launches() as launches:
+            with torch.cuda.graph(graph, pool=self._pool):
+                body()
+        self._pool = graph.pool()
+        self.captures += 1
+        self.capture_stats.append({**info,
+                                   "seconds": time.perf_counter() - t0})
+        self._graphs[key] = (graph, launches)
+        return self._graphs[key]
+
+    def run(self, key, body: Callable[[], None], times: int = 1,
+            **info) -> None:
+        """`times` runs of `body` on the current stream with no host
+        sync: replays of its graph for `key`. The first use of a key
+        runs `body` once eagerly, which loads every kernel it launches,
+        and then captures it. Launch counts of the replays are the
+        captured body's (hopper_kernels.add_launches)."""
+        if times <= 0:
+            return
+        entry = self._graphs.get(key)
+        if entry is None:
+            body()
+            times -= 1
+            entry = self._capture(key, body, info)
+        graph, launches = entry
+        for _ in range(times):
+            graph.replay()
+        hk.add_launches(launches, times)

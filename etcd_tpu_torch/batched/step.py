@@ -35,6 +35,7 @@ Determinism: randomized election timeouts use a per-instance hash of
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -1417,6 +1418,17 @@ with cfg.fleet_summary.)
 REC_WORDS = 9
 
 
+@functools.lru_cache(maxsize=None)
+def _lane_table(dev: torch.device) -> torch.Tensor:
+    """LANE_OF as an int32 tensor on `dev`, made once per device: a
+    host-to-device copy inside a CUDA graph capture would sync, so the
+    first (eager) round makes it and the captured round reads it.
+    Unroutable types map to lane 0; they are never valid, so the host
+    drops them (a -1 lane would smear into the type byte)."""
+    return torch.as_tensor(np.maximum(LANE_OF, 0).astype(np.int32),
+                           device=dev)
+
+
 def pack_outbox(out: MsgSlots, slots: torch.Tensor):
     """Pack an outbox [N, R, K] into wire-record words on its device.
 
@@ -1432,11 +1444,7 @@ def pack_outbox(out: MsgSlots, slots: torch.Tensor):
     rows = torch.arange(n, dtype=I32, device=dev).view(n, 1, 1)
     to = torch.arange(1, r + 1, dtype=I32, device=dev).view(1, r, 1)
     frm = (slots.to(I32) + 1).view(n, 1, 1)
-    # Unroutable types pack lane 0; they are never valid, so the host
-    # drops them (a -1 lane would smear into the type byte).
-    lane_of = torch.as_tensor(np.maximum(LANE_OF, 0).astype(np.int32),
-                              device=dev)
-    lane = lane_of[typ.clamp(0, NUM_WIRE_TYPES - 1).long()]
+    lane = _lane_table(dev)[typ.clamp(0, NUM_WIRE_TYPES - 1).long()]
     # Little-endian byte lanes of the record's one-byte fields.
     w_addr = to | (frm << 8) | (lane << 16) | (typ << 24)
     w_flags = out.reject.to(I32) | (torch.where(typ == T_APP, n_ents, 0) << 8)

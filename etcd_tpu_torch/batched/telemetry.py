@@ -7,13 +7,18 @@ keeps its own copy; tests/test_torch_planes.py pins it equal). With
 counters in ``TM_NAMES`` column order and an invariant bitmap in
 ``INV_NAMES`` bit order (step.py ``_telemetry_frame``,
 kernels.py ``invariant_bits``); the engine accumulates both on the
-device. The host hub and its metric families come with the port of
-the host codecs.
+device. The host hub (``TelemetryHub``) and its metric families are
+not ported yet (ROADMAP A9, beside the hosting slice): the engine's
+drains and the rawnode take any object with the hub's methods, and
+the rawnode hands it each round's frame with ``lane_summary`` of the
+outbox.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+import numpy as np
 
 # Column order of TelemetryFrame.counters.
 TM_NAMES = (
@@ -65,3 +70,9 @@ INV_NAMES = (
 
 def decode_invariants(bits: int) -> List[str]:
     return [n for i, n in enumerate(INV_NAMES) if bits & (1 << i)]
+
+
+def lane_summary(valid: np.ndarray) -> List[int]:
+    """Per-lane message counts from a [n, R, K] validity mask — the
+    decoded inbox/outbox summary the flight recorder rides."""
+    return np.asarray(valid).sum(axis=(0, 1)).astype(int).tolist()

@@ -308,3 +308,114 @@ def test_replays_make_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert eng.rounds == 22
+
+
+# -- the hosted rawnode on the card ---------------------------------------------
+
+
+def eager_members(cfg, dev):
+    """Hosted members whose round runs eagerly on the card: the graph
+    runner's run replaced by direct calls of the round body."""
+    rns = chip_smoke.hosted_members(cfg, dev)
+    for rn in rns.values():
+        rn._graphs.run = (lambda key, body, times=1, **info:
+                          [body() for _ in range(times)])
+    return rns
+
+
+def pump(rns, cfg, rounds, start=0):
+    """Rounds of chip_smoke's hosted schedule; yields each (rawnode,
+    Ready) after that member's advance."""
+    for rnd in range(start, start + rounds):
+        chip_smoke.hosted_schedule(rnd, rns, cfg)
+        for mid in chip_smoke.MEMBERS:
+            rn = rns[mid]
+            rd = rn.advance_round()
+            chip_smoke.route(rns, rd)
+            rn.advance()
+            yield rn, rd
+
+
+@pytest.mark.parametrize("config", ["bench", "prevote_cq", "bench_narrow"])
+def test_graphed_rawnodes_equal_eager_ones(dev, config):
+    """Three graphed members against three eager ones on the card, G=256,
+    with chip_smoke's staged edits between rounds (membership masks,
+    fence, compaction, pokes, ReadIndex, a transfer, a cut-off member
+    sent MsgSnap): Ready for Ready and field for field, every round; one
+    capture per graphed rawnode. bench_narrow stages int8/int16 lanes."""
+    configs = chip_smoke.parity_configs(256)
+    configs["bench_narrow"] = configs["bench"]._replace(narrow_lanes=True)
+    cfg = configs[config]
+    res = chip_smoke.hosted_lockstep(
+        cfg, [chip_smoke.hosted_members(cfg, dev), eager_members(cfg, dev)],
+        40, config)
+    assert set(res["captures"].values()) == {1}
+    assert res["snapshots_installed"] > 0 and res["leaders"] == 256
+
+
+def test_rawnode_graph_counts_the_launches_of_an_eager_round(dev):
+    cfg = chip_smoke.parity_configs(64)["bench"]
+    counts = []
+    for rns in (eager_members(cfg, dev), chip_smoke.hosted_members(cfg, dev)):
+        hk.reset_launches()
+        for _ in pump(rns, cfg, 6):
+            pass
+        counts.append((dict(hk.LAUNCHES), dict(hk.FORM_LAUNCHES)))
+    assert counts[0] == counts[1] and min(counts[0][0].values()) > 0
+
+
+def test_rawnode_round_makes_one_host_sync(dev):
+    """After the capture, a whole hosted round (staging, staged edits,
+    the replay, the host reads, routing) runs under sync debug mode
+    "error" except for each member's one wait."""
+    cfg = chip_smoke.parity_configs(64, planes=True)["prevote_cq"]
+    rns = chip_smoke.hosted_members(cfg, dev)
+    for _ in pump(rns, cfg, 2):
+        pass
+    waits = []
+    for rn in rns.values():
+        def wait(inner=rn._wait):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                inner()
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+            waits.append(1)
+        rn._wait = wait
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in pump(rns, cfg, 20, start=2):
+            pass
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(waits) == 20 * 3
+    assert {rn.captures for rn in rns.values()} == {1}
+
+
+def test_round_results_outlive_the_next_round(dev):
+    """The mirrors advance() installs, a Ready's snap rings and entries,
+    and the telemetry and fleet frames are the rawnode's to give away:
+    the next rounds, which reuse its host buffers, leave them as they
+    were. (m_snap is left out: a staged compaction raises the floor
+    mirror in place at the head of the next round, as in the
+    reference.)"""
+    cfg = chip_smoke.parity_configs(256, planes=True)["bench"]
+    rns = chip_smoke.hosted_members(cfg, dev)
+    held = []
+    for rn, rd in pump(rns, cfg, 36):
+        keep = [rn.m_term, rn.m_vote, rn.m_commit, rn.m_last, rn.m_role,
+                rn.m_lead, rn.m_ring, rn.m_lease_ticks,
+                rn.last_fleet, *rn.last_frame, rd.entries.term,
+                *rd.snap_rings.values()]
+        held.append((keep, [x.copy() for x in keep], len(rd.snap_rings)))
+    assert sum(k[2] for k in held) > 0
+    for keep, copies, _ in held:
+        for x, y in zip(keep, copies):
+            assert np.array_equal(x, y)
+
+
+def test_rawnode_defaults_to_the_gpu(dev):
+    from etcd_tpu_torch.batched.rawnode import BatchedRawNode
+
+    rn = BatchedRawNode(bench_config(4))
+    assert rn.state.term.is_cuda and rn.device.type == "cuda"

@@ -138,7 +138,8 @@ def test_bench_reads_the_jax_bench_variables(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke, loads neither
+    """Importing every module of the port (the rawnode, the message
+    codec and the raft types among them), and chip_smoke, loads neither
     jax nor any module of the JAX package."""
     code = """
 import pkgutil, sys
@@ -146,6 +147,9 @@ import etcd_tpu_torch
 for m in pkgutil.walk_packages(etcd_tpu_torch.__path__, "etcd_tpu_torch."):
     __import__(m.name)
 import chip_smoke
+for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
+          "etcd_tpu_torch.batched.graph", "etcd_tpu_torch.raft.types"):
+    assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))
 print(",".join(bad))
