@@ -2,36 +2,48 @@
 
     python3 chip_smoke.py
 
-Builds the Hopper kernels from the sources in this checkout, holds each
-one against its plain PyTorch version on the card, drives the main path
-(the bench engine at G=65,536 groups: elections, closed-loop rounds with
-proposals through the engine's CUDA graph of one round, commit p50),
-profiles the graphed round beside the eager one, holds graph replays
-against eager rounds, runs the main path again with the telemetry and
-fleet planes on, holds the whole round on CUDA against the same round
-on the CPU, drives the hosted path (three BatchedRawNode members of
-G=65,536 groups each, every member's round a graph replay, proposals
-with payloads committed on every member) and holds hosted members on
-CUDA against hosted members on the CPU. Each phase prints one line; any
-failure raises and the script exits non-zero. It needs CUDA: without
-it, it prints no result and exits non-zero.
+Builds the Hopper kernels (nvcc) and the WAL's record log (g++) from the
+sources in this checkout, side by side, holds each kernel against its
+plain PyTorch version on the card (at the engine's shapes and at the
+node's, N = 1), drives the main path (the bench engine at G=65,536
+groups: elections, closed-loop rounds with proposals through the
+engine's CUDA graph of one round, commit p50), profiles the graphed
+round beside the eager one, holds graph replays against eager rounds,
+runs the main path again with the telemetry and fleet planes on, holds
+the whole round on CUDA against the same round on the CPU, drives the
+hosted path (three BatchedRawNode members of G=65,536 groups each, every
+member's round a graph replay, proposals with payloads committed on
+every member), holds hosted members on CUDA against hosted members on
+the CPU, drives the raft.Node boundary (three BatchedNodes at
+raftexample's default width: 10,032 puts, a third forwarded, ReadIndex,
+a transfer, a voter removed and re-added, a compaction with a MsgSnap
+catch-up), holds CUDA nodes against CPU nodes Ready for Ready, and runs
+raftexample's replicated KV (three members, each in its own threads,
+with a WAL and snapshots on disk, one stopped and restarted from them).
+Each phase prints one line; any failure raises and the script exits
+non-zero. It needs CUDA: without it, it prints no result and exits
+non-zero.
 
 Line protocol (stdout): one line per phase (the kernels phase times
-every main-path form warm and L2-cold; the slice phase counts launches
-per kernel and per form), then a JSON line {"kernels": [...]} with every
-kernel's launches on the main paths (the engine's and the hosted one,
-each counted from 0 around its run) and, at its most launched form, its
-device time warm and cold, plain-version time and bound; then the
-card's name and power limit as nvidia-smi reports them; then, last,
-{"ok": true, "device": {...}}.
+every main-path and node-path form warm and L2-cold; the slice phase
+counts launches per kernel and per form), a line with each phase's wall
+seconds, then a JSON line {"kernels": [...]} with every kernel's
+launches on each path (the engine's, the hosted one, the node's and
+raftexample's, each counted from 0 around its run), at its most
+launched engine form its device time warm and cold, plain-version time
+and bound, and every form with its launches per engine, rawnode and
+node round; then the card's name and power limit as nvidia-smi reports
+them; then, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from collections import deque
 
@@ -85,8 +97,13 @@ def check_kernels(dev) -> "tuple[list, dict]":
     the main path gives either kernel (tools/kernel_times: the quorum's
     modes and its [N, R, R] ack-prefix tallies with unexpanded masks at
     R=3, the ring lookup at K in {1, 3, 4, 12}), each timed warm and
-    L2-cold at N = 196,608 rows. Returns the timed forms and each
-    kernel's largest |kernel - plain|, and prints the forms."""
+    L2-cold at N = 196,608 rows, then every form a BatchedNode round
+    gives them at N = 1 (B1 at R=3 with joint and empty configs; the
+    general ring lookup at K in {1, 3, 8, 24} and W in {256, 32768},
+    with queries at the floor, past last and across the ring's wrap),
+    every seeded case held equal and the first timed. Returns the timed
+    forms and each kernel's largest |kernel - plain|, and prints the
+    forms."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
     from etcd_tpu_torch.tools import kernel_times as kt
 
@@ -113,32 +130,53 @@ def check_kernels(dev) -> "tuple[list, dict]":
         name = form["key"].split()[0]
         err[name] = max(err[name], assert_equal(form["key"], form["call"](),
                                                 form["plain"]()))
-        variants.append(kt.time_form(form))
+        variants.append({**kt.time_form(form), "n": n})
+    for form in kt.node_path_forms(dev):
+        name = form["key"].split()[0]
+        for j, (call, plain) in enumerate(form["cases"]):
+            err[name] = max(err[name], assert_equal(
+                f"{form['key']} N=1 case {j}", call(), plain()))
+        variants.append({**kt.time_form(form), "n": 1,
+                         "cases": len(form["cases"])})
     log("kernels", equal=True, variants=variants)
     return variants, err
 
 
-def kernel_rows(variants: list, err: dict, launches: dict, forms: dict,
-                hosted: dict) -> list:
+def kernel_rows(variants: list, err: dict, paths: dict) -> list:
     """The kernels line: each kernel at its most launched form on the
-    main path; its launches are those of the engine's main path (slice)
-    and of the hosted path, each counted from 0 around its own run."""
+    engine's main path, its launches on every path (each counted from 0
+    around its own run), and every form it was timed at with that form's
+    launches per engine round (N = 196,608), per rawnode round
+    (N = 65,536) and per node round (N = 1)."""
+    per_round = {path: {k: v / p["rounds"] for k, v in p["forms"].items()}
+                 for path, p in paths.items() if "forms" in p}
     rows = []
     for name, line in (("quorum_commit_vote", 90), ("term_at_batch", 142)):
-        top = max((v for v in variants if v["form"].startswith(name + " ")),
-                  key=lambda v: forms.get(v["form"], 0))
+        mine = [v for v in variants if v["form"].startswith(name + " ")]
+        top = max((v for v in mine if v["n"] > 1),
+                  key=lambda v: paths["slice"]["forms"].get(v["form"], 0))
+        forms = []
+        for v in mine:
+            path_rounds = ({"node": "node"} if v["n"] == 1 else
+                           {"engine": "slice", "rawnode": "hosted"})
+            forms.append({
+                **{k: v[k] for k in ("form", "n", "ms", "cold_ms",
+                                     "plain_ms", "bound_ms", "bound_by")},
+                "launches_per_round": {
+                    label: per_round[path].get(v["form"], 0.0)
+                    for label, path in path_rounds.items()}})
         rows.append({
             "name": name, "route": "cuda",
             "source": "etcd_tpu_torch/batched/csrc/quorum_ring.cu",
             "replaces": f"etcd_tpu/batched/pallas_kernels.py:{line}",
-            "launches": launches[name] + hosted[name],
-            "launches_by_path": {"slice": launches[name],
-                                 "hosted": hosted[name]},
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches_by_path": {path: p["launches"][name]
+                                 for path, p in paths.items()},
             "max_abs_err": err[name],
             "ms": top["ms"], "cold_ms": top["cold_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
-            "form": top["form"]})
+            "form": top["form"], "forms": forms})
     return rows
 
 
@@ -760,7 +798,7 @@ def run_hosted(dev, groups: int = MAIN_GROUPS,
     (the bench config), balanced leaders, PROPS_PER_ROUND 64-byte
     proposals per group per round for `load_rounds` rounds, drained until
     quiet; then a short run with telemetry on. Returns the kernel launches
-    of the main run."""
+    and form launches of the main run and its rawnode rounds."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
     from etcd_tpu_torch.tools.benchlib import bench_config
 
@@ -844,7 +882,8 @@ def run_hosted(dev, groups: int = MAIN_GROUPS,
     del ht
     log("hosted", **result, telemetry_rows_tripped=sum(trips),
         card=smi("name,power.limit") if cuda else str(dev))
-    return launches
+    return {"launches": launches, "forms": forms,
+            "rounds": rounds * len(MEMBERS)}
 
 
 # -- phase: hosted_parity (rawnodes on CUDA vs rawnodes on the CPU) ----------
@@ -961,32 +1000,624 @@ def run_hosted_parity(dev, plain_dev=torch.device("cpu")) -> None:
         log("hosted_parity", config=label, groups=256, equal=True, **res)
 
 
+# -- phase: node (three BatchedNodes at raftexample's default width) ------------
+
+# raftexample's member at its defaults (raftexample/raftnode.py and
+# BatchedNode's): R = 3, a W = 32,768 term ring, election 10 ticks,
+# heartbeat 1, E = 8, P = 8, pre-vote and check-quorum.
+NODE_WINDOW = 32768
+NODE_PUTS = 10_000
+PUTS_PER_ROUND = 8  # P: what a leader appends in one round
+# Pump rounds of each load block of node_schedule: at 8 puts a round,
+# the node phase makes 10,032 puts, node_parity 352.
+NODE_LOAD = (400, 300, 100, 150, 300)
+PARITY_LOAD = (12, 10, 6, 8, 4)
+
+
+def node_plain(x):
+    """A Ready, a Status or another dataclass tree as plain values
+    (enums as ints, sets sorted, the tracker's config by its fields), for
+    an exact comparison."""
+    import dataclasses
+    import enum
+
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__, {f.name: node_plain(getattr(x, f.name))
+                                   for f in dataclasses.fields(x)})
+    if isinstance(x, enum.Enum):
+        return int(x)
+    if isinstance(x, (list, tuple)):
+        return [node_plain(v) for v in x]
+    if isinstance(x, dict):
+        return {k: node_plain(v) for k, v in x.items()}
+    if isinstance(x, (set, frozenset)):
+        return sorted(node_plain(v) for v in x)
+    if hasattr(x, "__dict__"):
+        return (type(x).__name__, node_plain(vars(x)))
+    return x
+
+
+class NodeSet:
+    """Three BatchedNodes on one device, driven by a synchronous pump:
+    every member ticks, then each in turn runs ready(), applies (conf
+    changes through apply_conf_change, puts to its list, a snapshot's
+    data as the whole list), routes its messages to the others' step
+    and advances. Records every put's origin and its commit latency on
+    the first member that applies it (the leader)."""
+
+    def __init__(self, dev):
+        from etcd_tpu_torch.batched.node import BatchedNode
+
+        t0 = time.perf_counter()
+        self.nodes = {i: BatchedNode(i, list(MEMBERS), window=NODE_WINDOW,
+                                     device=dev) for i in MEMBERS}
+        self.setup_s = time.perf_counter() - t0
+        self.applied = {i: [] for i in MEMBERS}
+        self.out = set()  # members cut off or removed: no puts via them
+        self.cut = set()  # members whose messages are dropped both ways
+        self.snaps, self.reads, self.dropped = [], [], []
+        self.pending = {}  # put -> (pump round, time) until applied
+        self.order = {i: [] for i in MEMBERS}  # puts handed to member i
+        self.lat_rounds, self.lat_ms = [], []
+        self.rounds = self.node_rounds = 0
+        self.ready_ms, self.turn_ms, self.device = [], [], {}
+
+    def leader(self) -> int:
+        lead = [i for i, n in self.nodes.items() if n.rn.is_leader(0)]
+        return lead[0] if len(lead) == 1 else 0
+
+    def settled(self, want=None) -> bool:
+        lead = self.leader()
+        return lead != 0 and lead == (want or lead) and all(
+            self.nodes[i].rn.lead(0) == lead
+            for i in MEMBERS if i not in self.out)
+
+    def commit(self, i: int) -> int:
+        return self.nodes[i].status().basic.hard_state.commit
+
+    def quiet(self) -> bool:
+        lead = self.leader()
+        live = [i for i in MEMBERS if i not in self.out]
+        return lead != 0 and not self.pending and all(
+            self.applied[i] == self.applied[lead]
+            and self.commit(i) == self.commit(lead) for i in live)
+
+    def put(self, via: int, data: bytes) -> None:
+        self.nodes[via].propose(data)
+        self.pending[data] = (self.rounds, time.perf_counter())
+        self.order[via].append(data)
+
+    def apply(self, i: int, rd) -> None:
+        from etcd_tpu_torch.raft.types import (
+            ConfChange, ConfChangeV2, EntryType)
+
+        n = self.nodes[i]
+        if rd.snapshot.metadata.index:
+            data = rd.snapshot.data
+            self.applied[i] = [data[k:k + PAYLOAD_BYTES]
+                               for k in range(0, len(data), PAYLOAD_BYTES)]
+            self.snaps.append((i, rd.snapshot.metadata.index))
+        now = time.perf_counter()
+        for e in rd.committed_entries:
+            if e.type == EntryType.EntryConfChange and e.data:
+                n.apply_conf_change(ConfChange.unmarshal(e.data))
+            elif e.type == EntryType.EntryConfChangeV2:
+                n.apply_conf_change(ConfChangeV2.unmarshal(e.data))
+            elif e.data:
+                self.applied[i].append(e.data)
+                born = self.pending.pop(e.data, None)
+                if born is not None:
+                    self.lat_rounds.append(self.rounds - born[0] + 1)
+                    self.lat_ms.append((now - born[1]) * 1e3)
+        self.reads += [(i, rs.index, rs.request_ctx) for rs in rd.read_states]
+
+    def member(self, i: int, digest: bool = False):
+        """Member i's turn; with `digest`, its Ready as plain values,
+        taken before routing (which may edit a MsgSnap in place)."""
+        from etcd_tpu_torch.batched.node import ProposalDroppedError
+
+        n = self.nodes[i]
+        t0 = time.perf_counter()
+        rd = n.ready(timeout=0)
+        t1 = time.perf_counter()
+        if rd is None:
+            return None
+        got = node_plain(rd) if digest else None
+        self.apply(i, rd)
+        for m in rd.messages:
+            if i in self.cut or m.to in self.cut:
+                continue
+            try:
+                self.nodes[m.to].step(m)
+            except ProposalDroppedError as e:
+                self.dropped.append(str(e))
+        n.advance()
+        self.node_rounds += 1
+        self.ready_ms.append((t1 - t0) * 1e3)
+        self.turn_ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    def profile_member(self, i: int) -> dict:
+        """Member i's turn under the profiler: the device time of its
+        node round (its graph replay and its copies)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from etcd_tpu_torch.tools.kernel_times import _device_us, kernel_events
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            self.member(i)
+            torch.cuda.synchronize()
+        events = kernel_events(prof)
+        copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+        kernels = [e for e in events if e not in copies]
+        if not kernels:
+            return {"device_ms": "not measured"}
+        return {"device_ms": sum(_device_us(e) for e in kernels) / 1e3,
+                "device_kernels": sum(e.count for e in kernels),
+                "copy_ms": sum(_device_us(e) for e in copies) / 1e3,
+                "copies": sum(e.count for e in copies),
+                "hopper_kernels": {
+                    e.key: {"calls": e.count,
+                            "device_us_per_call": _device_us(e) / e.count}
+                    for e in kernels if "quorum_commit_vote" in e.key
+                    or "term_at_batch" in e.key}}
+
+
+def node_round(sets: list, profile: bool = False) -> None:
+    """One pump round of every set in lockstep. With two or more sets,
+    member i's Readys are equal across the sets after each turn, and so
+    is every member's status() after the round. With `profile`, the
+    leader's and a follower's turns run under the profiler."""
+    for ns in sets:
+        for n in ns.nodes.values():
+            n.tick()
+    lead = sets[0].leader()
+    for i in MEMBERS:
+        if len(sets) == 1:
+            if profile and (i == lead or i == lead % 3 + 1):
+                sets[0].device["leader" if i == lead else "follower"] = (
+                    sets[0].profile_member(i))
+            else:
+                sets[0].member(i)
+            continue
+        got = [ns.member(i, digest=True) for ns in sets]
+        if any(g != got[0] for g in got[1:]):
+            raise AssertionError(f"node round {sets[0].rounds} member {i}: "
+                                 "Readys differ")
+    if len(sets) > 1:
+        for i in MEMBERS:
+            st = [node_plain(ns.nodes[i].status()) for ns in sets]
+            if any(x != st[0] for x in st[1:]):
+                raise AssertionError(f"node round {sets[0].rounds} member "
+                                     f"{i}: status differs")
+    for ns in sets:
+        ns.rounds += 1
+
+
+def node_until(sets: list, pred, what: str, max_rounds: int = 600) -> int:
+    """Pump rounds until `pred(sets[0])`; at most `max_rounds` (a
+    follower catches up E = 8 entries a round, so a catch-up of a
+    thousand entries takes ~130)."""
+    for k in range(max_rounds):
+        if pred(sets[0]):
+            return k
+        node_round(sets)
+    raise AssertionError(f"node: {what} not reached in {max_rounds} rounds")
+
+
+def node_load(sets: list, rng, rounds: int, profile_at=None) -> None:
+    """`rounds` pump rounds with PUTS_PER_ROUND seeded 64-byte puts each;
+    every third put is handed to a follower, which forwards it."""
+    for k in range(rounds):
+        ns = sets[0]
+        lead = ns.leader()
+        fwd = [i for i in MEMBERS if i != lead and i not in ns.out]
+        for j in range(PUTS_PER_ROUND):
+            data = rng.bytes(PAYLOAD_BYTES)
+            count = sum(map(len, ns.order.values()))
+            via = fwd[count % len(fwd)] if fwd and count % 3 == 0 else lead
+            for s in sets:
+                s.put(via, data)
+        node_round(sets, profile=profile_at == k)
+
+
+def node_schedule(sets: list, load: tuple, profile: bool = False) -> dict:
+    """The node schedule on member sets in lockstep: election; load;
+    ReadIndex at a quiet point (its index is the leader's commit); a
+    leadership transfer; a voter removed (load on two voters) and added
+    back; a follower cut off while the leader snapshots and compacts,
+    then caught up by MsgSnap; load. Returns the step counts."""
+    from etcd_tpu_torch.raft.types import ConfChange, ConfChangeType
+
+    rng = np.random.RandomState(SEED)
+    ns = sets[0]
+    node_until(sets, lambda s: s.settled(), "election")
+    lead = ns.leader()
+    node_load(sets, rng, load[0], profile_at=load[0] // 2 if profile else None)
+    node_until(sets, NodeSet.quiet, "quiet after load 1")
+
+    for s in sets:
+        s.nodes[lead].read_index(b"read-1")
+    node_until(sets, lambda s: s.reads, "the read state")
+    if ns.reads[0] != (lead, ns.commit(lead), b"read-1"):
+        raise AssertionError(f"read state {ns.reads} at commit "
+                             f"{ns.commit(lead)}")
+
+    target = lead % 3 + 1
+    for s in sets:
+        s.nodes[lead].transfer_leadership(lead, target)
+    node_until(sets, lambda s: s.settled(target), "the transfer")
+    lead = target
+    node_load(sets, rng, load[1])
+    node_until(sets, NodeSet.quiet, "quiet after load 2")
+
+    victim = lead % 3 + 1
+    for s in sets:
+        s.out.add(victim)
+        s.nodes[lead].propose_conf_change(ConfChange(
+            id=1, type=ConfChangeType.ConfChangeRemoveNode, node_id=victim))
+    node_until(sets, lambda s: all(
+        victim not in s.nodes[i]._current_conf_state().voters
+        for i in MEMBERS if i != victim), "the removal")
+    node_load(sets, rng, load[2])
+    for s in sets:
+        s.nodes[lead].propose_conf_change(ConfChange(
+            id=2, type=ConfChangeType.ConfChangeAddNode, node_id=victim))
+        s.out.discard(victim)
+    node_until(sets, lambda s: s.quiet() and all(
+        victim in s.nodes[i]._current_conf_state().voters for i in MEMBERS),
+        "the re-add and catch-up")
+
+    cut = next(i for i in MEMBERS if i not in (lead, victim))
+    for s in sets:
+        s.out.add(cut)
+        s.cut.add(cut)
+    node_load(sets, rng, load[3])
+    node_until(sets, NodeSet.quiet, "quiet with a member cut off")
+    snaps = []
+    for s in sets:
+        n = s.nodes[lead]
+        idx = n.status().basic.applied
+        snap = n.create_snapshot(idx, None, b"".join(s.applied[lead]))
+        n.compact(idx, snap)
+        snaps.append((idx, node_plain(snap.metadata)))
+    if any(x != snaps[0] for x in snaps[1:]):
+        raise AssertionError(f"snapshots differ: {snaps}")
+    node_load(sets, rng, 4)
+    for s in sets:
+        s.cut.clear()
+        s.out.clear()
+    node_until(sets, lambda s: any(i == cut for i, _ in s.snaps),
+               "the MsgSnap catch-up")
+    node_until(sets, NodeSet.quiet, "quiet after the catch-up")
+    node_load(sets, rng, load[4])
+    node_until(sets, NodeSet.quiet, "quiet after the last load")
+    return {"transfer_to": target, "removed_and_readded": victim,
+            "cut_off_and_caught_up": cut, "snapshot_index": snaps[0][0],
+            "snapshots_installed": ns.snaps, "read_state": ns.reads[0][:2]}
+
+
+def check_node_set(ns: NodeSet) -> int:
+    """Every put committed once on every member, in the leader's log
+    order, with its bytes, each member's puts in the order it was handed
+    them; commits equal. Returns the puts."""
+    puts = [d for seq in ns.order.values() for d in seq]
+    ref = ns.applied[ns.leader()]
+    if len(ref) != len(puts) or set(ref) != set(puts) or ns.pending:
+        raise AssertionError(f"node: {len(ref)} applied of {len(puts)} puts")
+    for i, seq in ns.applied.items():
+        if seq != ref:
+            raise AssertionError(f"node: member {i} applied other puts")
+    pos = {d: k for k, d in enumerate(ref)}
+    for i, seq in ns.order.items():
+        if [pos[d] for d in seq] != sorted(pos[d] for d in seq):
+            raise AssertionError(f"node: member {i}'s puts out of order")
+    if len({ns.commit(i) for i in MEMBERS}) != 1 or ns.dropped:
+        raise AssertionError(f"node: commits or drops {ns.dropped}")
+    return len(puts)
+
+
+def run_node(dev) -> dict:
+    """Three BatchedNodes on the card at raftexample's default width,
+    the node schedule at NODE_LOAD (10,032 puts). Returns the launches
+    and form launches of its run and its node rounds."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+
+    ns = NodeSet(dev)
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    steps = node_schedule([ns], NODE_LOAD, profile=dev.type == "cuda")
+    wall_s = time.perf_counter() - t0
+    launches, forms = dict(hk.LAUNCHES), dict(hk.FORM_LAUNCHES)
+    puts = check_node_set(ns)
+    if puts < NODE_PUTS:
+        raise AssertionError(f"node: {puts} puts")
+    captures = {i: n.rn.captures for i, n in ns.nodes.items()}
+    if dev.type == "cuda" and set(captures.values()) != {1}:
+        raise AssertionError(f"node: captures per node {captures}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on the node "
+                                 "path")
+    lat_r, lat_ms = np.asarray(ns.lat_rounds), np.asarray(ns.lat_ms)
+    log("node", members=len(MEMBERS),
+        config=f"R=3, W={NODE_WINDOW}, election 10, heartbeat 1, E=8, P=8, "
+        "pre-vote, check-quorum", setup_s=ns.setup_s, **steps,
+        puts=puts, pump_rounds=ns.rounds, node_rounds=ns.node_rounds,
+        wall_s=wall_s, entries_per_s=puts / wall_s,
+        commit_latency_rounds={"p50": float(np.percentile(lat_r, 50)),
+                               "p99": float(np.percentile(lat_r, 99))},
+        commit_latency_ms={"p50": float(np.percentile(lat_ms, 50)),
+                           "p99": float(np.percentile(lat_ms, 99))},
+        ready_ms={"p50": statistics.median(ns.ready_ms),
+                  "p99": float(np.percentile(ns.ready_ms, 99))},
+        turn_ms={"p50": statistics.median(ns.turn_ms),
+                 "p99": float(np.percentile(ns.turn_ms, 99))},
+        device_per_node_round=ns.device,
+        launches=launches,
+        launches_per_node_round={k: v / ns.node_rounds
+                                 for k, v in launches.items()},
+        form_launches_per_node_round={k: v / ns.node_rounds
+                                      for k, v in forms.items()},
+        captures=captures,
+        capture_s={i: [c["seconds"] for c in n.rn.capture_stats]
+                   for i, n in ns.nodes.items()},
+        card=smi("name,power.limit") if dev.type == "cuda" else str(dev))
+    return {"launches": launches, "forms": forms, "rounds": ns.node_rounds}
+
+
+def run_node_parity(dev, plain_dev=torch.device("cpu")) -> None:
+    """The node schedule, shorter (PARITY_LOAD), on nodes on `dev` and on
+    nodes on the CPU in lockstep: Ready for Ready and status for status
+    equal, every round."""
+    sets = [NodeSet(dev), NodeSet(plain_dev)]
+    t0 = time.perf_counter()
+    steps = node_schedule(sets, PARITY_LOAD)
+    puts = [check_node_set(ns) for ns in sets]
+    captures = {i: n.rn.captures for i, n in sets[0].nodes.items()}
+    if dev.type == "cuda" and set(captures.values()) != {1}:
+        raise AssertionError(f"node_parity: captures per node {captures}")
+    log("node_parity", equal=True, puts=puts[0], pump_rounds=sets[0].rounds,
+        node_rounds=sets[0].node_rounds, wall_s=time.perf_counter() - t0,
+        captures=captures, **steps)
+
+
+# -- phase: raftexample (three members, each in its own threads) ---------------
+
+EXAMPLE_PUTS = 10_000
+EXAMPLE_WINDOW = 64  # the client's puts in flight (not yet visible everywhere)
+
+
+def run_raftexample(dev, puts: int = EXAMPLE_PUTS,
+                    timeout_s: float = 400.0) -> dict:
+    """Three raftexample members on `dev`, each with its Ready loop,
+    ticker and network pump in threads of its own and its WAL and
+    snapshots in a temp directory, at the default snap_count (clamped to
+    W/4 = 8,192, so 10,000 puts take one snapshot and one compaction).
+    A client thread puts through ReplicatedKV.propose on the leader with
+    at most EXAMPLE_WINDOW puts in flight and looks keys up on every
+    member; a follower is stopped a third of the way in and restarted
+    from its WAL and snapshot at half way, and must catch up. Returns
+    the launches of the run."""
+    import shutil
+    import tempfile
+    import threading
+
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.batched import rawnode as rawnode_mod
+    from etcd_tpu_torch.batched.graph import device_work
+    from etcd_tpu_torch.raftexample import (
+        ExampleRaftNode, InProcNetwork, ReplicatedKV)
+
+    seen = {}  # (member, key) -> first time it was visible there
+
+    class TimedKV(ReplicatedKV):
+        """The app, noting when each key first became visible on its
+        member: applied from the log, or restored from a snapshot."""
+
+        def __init__(self, mid):
+            super().__init__()
+            self.mid = mid
+
+        def _seen(self, keys):
+            now = time.perf_counter()
+            for key in keys:
+                seen.setdefault((self.mid, key), now)
+
+        def apply(self, ents):
+            super().apply(ents)
+            self._seen(json.loads(e.data)["key"] for e in ents)
+
+        def restore(self, data):
+            super().restore(data)
+            self._seen(list(self._store))
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-raftexample-")
+    net = InProcNetwork(seed=SEED)
+    members, kvs, rawnodes = {}, {}, []
+
+    def start(mid):
+        kv = TimedKV(mid)
+        m = ExampleRaftNode(mid, list(MEMBERS), net, tmp, kv.apply,
+                            kv.snapshot, kv.restore, device=dev)
+        kv.attach(m)
+        members[mid], kvs[mid] = m, kv
+        rawnodes.append((mid, m.node.rn))
+
+    def leader():
+        for mid, m in members.items():
+            if not m._stopped.is_set() and m.is_leader():
+                return mid
+        return 0
+
+    def wait(pred, what, limit=60.0):
+        deadline = time.perf_counter() + limit
+        while not pred():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"raftexample: {what} timed out")
+            time.sleep(0.002)
+
+    # The device lock's acquire waits: the members' rounds serialize on
+    # it (graph.device_work), as they would on the shared stream.
+    lock, waits = device_work(), []
+
+    class TimedLock:
+        def __enter__(self):
+            t = time.perf_counter()
+            lock.acquire()
+            waits.append((time.perf_counter() - t) * 1e3)
+
+        def __exit__(self, *exc):
+            lock.release()
+
+    timed_lock = TimedLock()
+    rawnode_mod.device_work = lambda: timed_lock
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for mid in MEMBERS:
+            start(mid)
+        wait(lambda: leader() != 0, "the election")
+        lead = leader()
+        victim = lead % 3 + 1
+        live = set(MEMBERS)
+        born, outage = {}, set()
+        lookups = [0]
+        err = []
+
+        def client():
+            try:
+                inflight = deque()
+                for k in range(puts):
+                    if k == puts // 3:
+                        members[victim].stop()
+                        live.discard(victim)
+                    if k == puts // 2:
+                        start(victim)
+                        live.add(victim)
+                    key = f"k{k:06d}"
+                    while len(inflight) >= EXAMPLE_WINDOW:
+                        old = inflight[0]
+                        if all((m, old) in seen for m in live):
+                            inflight.popleft()
+                        else:
+                            time.sleep(0.0002)
+                    if puts // 3 <= k < puts // 2 + EXAMPLE_WINDOW:
+                        outage.add(key)  # put while a member was down
+                    born[key] = time.perf_counter()
+                    kvs[lead].propose(key, f"v{k}")
+                    inflight.append(key)
+                    if k % 97 == 0:
+                        for kv in list(kvs.values()):
+                            kv.lookup(key)
+                            lookups[0] += 1
+            except Exception as e:  # noqa: BLE001 — raised in the main thread
+                err.append(e)
+
+        th = threading.Thread(target=client, daemon=True)
+        t_load = time.perf_counter()
+        th.start()
+        th.join(timeout_s)
+        if th.is_alive() or err:
+            raise AssertionError(f"raftexample client: {err or 'timed out'}")
+        last = f"k{puts - 1:06d}"
+        wait(lambda: all(kv.lookup(last) == f"v{puts - 1}"
+                         for kv in kvs.values()), "the catch-up")
+        load_s = time.perf_counter() - t_load
+        wait(lambda: len({len(kv) for kv in kvs.values()}) == 1,
+             "equal maps")
+        maps = [dict(kv._store) for kv in kvs.values()]
+        if any(m != maps[0] for m in maps[1:]) or len(maps[0]) != puts:
+            raise AssertionError("raftexample: the members' maps differ")
+        captures = [(mid, rn.captures) for mid, rn in rawnodes]
+        if dev.type == "cuda" and {c for _, c in captures} != {1}:
+            raise AssertionError(f"raftexample: captures {captures}")
+        snaps = {mid: m.snapshot_index for mid, m in members.items()}
+        if puts > members[lead].snap_count and not all(
+                snaps[mid] > 0 for mid in MEMBERS if mid != victim):
+            raise AssertionError(f"raftexample: snapshot indexes {snaps}")
+        lat = [(max(seen[(m, key)] for m in MEMBERS) - t) * 1e3
+               for key, t in born.items() if key not in outage]
+        launches, forms = dict(hk.LAUNCHES), dict(hk.FORM_LAUNCHES)
+        log("raftexample", members=len(MEMBERS), puts=puts,
+            window=EXAMPLE_WINDOW, snap_count=members[lead].snap_count,
+            stopped_and_restarted=victim, leader=lead,
+            puts_per_s=puts / load_s, load_s=load_s,
+            wall_s=time.perf_counter() - t0,
+            visible_everywhere_ms={"p50": float(np.percentile(lat, 50)),
+                                   "p99": float(np.percentile(lat, 99)),
+                                   "samples": len(lat)},
+            lookups=lookups[0], snapshot_index=snaps, captures=captures,
+            device_lock_waits=len(waits),
+            device_lock_wait_ms={"p50": float(np.percentile(waits, 50)),
+                                 "p99": float(np.percentile(waits, 99)),
+                                 "sum_s": sum(waits) / 1e3},
+            capture_s=[c["seconds"] for _, rn in rawnodes
+                       for c in rn.capture_stats],
+            launches=launches, form_launches=forms,
+            card=smi("name,power.limit") if dev.type == "cuda" else str(dev))
+        return launches
+    finally:
+        rawnode_mod.device_work = device_work
+        for m in members.values():
+            m.stop()
+        net.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
               file=sys.stderr)
         return 2
+    from etcd_tpu_torch import native
     from etcd_tpu_torch.batched import hopper_kernels as hk
 
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
     t0 = time.perf_counter()
+    # The two builds of the checkout's sources run side by side: nvcc for
+    # the Hopper kernels, g++ for the WAL's record log.
+    walog = {}
+    gxx = threading.Thread(target=lambda: walog.update(
+        path=native.build("walog"), s=time.perf_counter() - t0))
+    gxx.start()
     hk.load_library()
+    build_s = time.perf_counter() - t0
+    gxx.join()
+    if "path" not in walog:
+        raise RuntimeError("the walog library did not build")
     log("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        device=torch.cuda.get_device_name(0),
-        build_s=time.perf_counter() - t0, library=hk.library_path().name)
+        device=torch.cuda.get_device_name(0), build_s=build_s,
+        library=hk.library_path().name, walog_build_s=walog["s"],
+        walog_library=os.path.basename(walog["path"]))
 
-    variants, err = check_kernels(dev)
-    launches, forms, eng, props = run_slice(dev)
-    base_device_ms = run_profile(eng, props)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    variants, err = timed("kernels", check_kernels, dev)
+    launches, forms, eng, props = timed("slice", run_slice, dev)
+    paths = {"slice": {"launches": launches, "forms": forms,
+                       "rounds": eng.rounds}}
+    base_device_ms = timed("profile", run_profile, eng, props)
     del eng, props
-    run_graph(dev)
-    run_planes(dev, base_device_ms)
-    run_parity(dev)
-    hosted = run_hosted(dev)
-    run_hosted_parity(dev)
-    print(json.dumps({"kernels": kernel_rows(variants, err, launches,
-                                             forms, hosted)}))
+    timed("graph", run_graph, dev)
+    timed("planes", run_planes, dev, base_device_ms)
+    timed("parity", run_parity, dev)
+    paths["hosted"] = timed("hosted", run_hosted, dev)
+    timed("hosted_parity", run_hosted_parity, dev)
+    paths["node"] = timed("node", run_node, dev)
+    timed("node_parity", run_node_parity, dev)
+    paths["raftexample"] = {"launches": timed("raftexample",
+                                              run_raftexample, dev)}
+    log("phases", seconds=phase_s)
+    print(json.dumps({"kernels": kernel_rows(variants, err, paths)}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

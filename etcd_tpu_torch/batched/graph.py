@@ -8,16 +8,43 @@ one buffer per state, input and output field, its round body reads the
 inputs and writes every result into the buffers, and whatever the host
 changes between rounds it changes in place in those buffers. This is
 the counterpart of the JAX package's buffer donation.
+
+Captures and other threads. A capture (``torch.cuda.graph``, in its
+default "global" error mode) forbids any other thread of the process
+the CUDA calls that could touch the captured stream: an allocation, a
+pinned copy, a stream or device synchronize. Hosts such as raftexample
+run each member's Ready loop in a thread of its own, so members would
+capture and replay side by side. ``device_work()`` is one lock for the
+whole process: ``RoundGraphs.run`` holds it for its eager round, its
+capture and its replays, and the rawnode holds it for its construction
+and for every round from its staged edits to its wait. Members that
+share the default stream wait for each other's rounds in that wait
+anyway, so the lock costs them only the host time of a round's
+enqueue. On the CPU the same lock serializes the members' rounds: a
+CPU round is ~2,000 small ops, each of which takes the GIL again, and
+three rounds side by side convoy on it (a three-member raftexample
+cluster on the CPU ran its rounds 2-3x slower without the lock).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Iterable, List, Set, Tuple
 
 import torch
 
 from . import hopper_kernels as hk
+
+
+_DEVICE_LOCK = threading.RLock()
+
+
+def device_work() -> threading.RLock:
+    """The process-wide lock around a round's device work and whatever
+    CUDA work a capture in another thread must not meet (see above).
+    Re-entrant."""
+    return _DEVICE_LOCK
 
 
 def storages(tensors: Iterable[torch.Tensor]) -> Set[int]:
@@ -71,15 +98,18 @@ class RoundGraphs:
         sync: replays of its graph for `key`. The first use of a key
         runs `body` once eagerly, which loads every kernel it launches,
         and then captures it. Launch counts of the replays are the
-        captured body's (hopper_kernels.add_launches)."""
+        captured body's (hopper_kernels.add_launches). All of it holds
+        the device lock (device_work), the count too: members in other
+        threads add to the same counts."""
         if times <= 0:
             return
-        entry = self._graphs.get(key)
-        if entry is None:
-            body()
-            times -= 1
-            entry = self._capture(key, body, info)
-        graph, launches = entry
-        for _ in range(times):
-            graph.replay()
-        hk.add_launches(launches, times)
+        with device_work():
+            entry = self._graphs.get(key)
+            if entry is None:
+                body()
+                times -= 1
+                entry = self._capture(key, body, info)
+            graph, launches = entry
+            for _ in range(times):
+                graph.replay()
+            hk.add_launches(launches, times)

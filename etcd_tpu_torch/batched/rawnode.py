@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..raft.types import Message, MessageType, Snapshot, SnapshotMetadata
-from .graph import RoundGraphs, storages, write_back
+from .graph import RoundGraphs, device_work, storages, write_back
 from .msgblock import (
     MsgBlock,
     compact_records,
@@ -246,6 +246,15 @@ class BatchedRawNode:
             _refuse("BatchedRawNode(mesh=...)", "mesh")
         self.device = dev = resolve_device(device)
         self._cuda = dev.type == "cuda"
+        with device_work():
+            self._build(cfg, dev, groups, slots, restore, start_index)
+
+    def _build(self, cfg, dev, groups, slots, restore, start_index) -> None:
+        """The rest of the constructor: the layout, the round, the
+        device buffers and their host twins, the host mirrors, and the
+        boot from `restore`. It runs under the process-wide device lock
+        (graph.device_work): on CUDA it allocates and copies on the card,
+        which another thread's capture must not meet."""
         r, e = cfg.num_replicas, cfg.max_ents_per_msg
         if groups is None:  # dense all-replica layout
             n = cfg.num_instances
@@ -344,6 +353,11 @@ class BatchedRawNode:
 
         if restore:
             self._restore(restore)
+        if self._cuda:
+            # The round's host copies start as the state's, so a read
+            # before the first round (round_snap_term) sees the boot.
+            for host, f in zip(self._host_state, _HOST_STATE):
+                host.copy_(getattr(self.state, f))
 
         # In-flight round (between advance_round and advance).
         self._round: Optional[Tuple] = None
@@ -797,7 +811,7 @@ class BatchedRawNode:
                 (row2, idx, int(self.latest_ring()[row2, idx % w])))
             self.m_snap[row2] = max(self.m_snap[row2], idx)
         tr_dispatch = time.monotonic_ns() if tracer is not None else 0
-        with self._on_device():
+        with self._on_device(), device_work():
             self._run_device(pend_conf, pend_fence, compact_rows, poke_rows)
             self._wait()
 
@@ -1119,7 +1133,8 @@ class BatchedRawNode:
         if self._h2d_pending is not None:
             # A round that copied these buffers to the device never
             # waited (it raised): let its copies finish first.
-            self._h2d_pending.synchronize()
+            with device_work():
+                self._h2d_pending.synchronize()
             self._h2d_pending = None
         # The staging buffers keep the inbox's storage dtypes: under
         # cfg.narrow_lanes type is int8 and n_ents int16 (the round
@@ -1299,11 +1314,18 @@ class BatchedRawNode:
         fetch, at admin cadence, never on the round's path. Rows this
         process does not lead carry reset-stale values — callers gate
         on leadership first."""
-        return self.state.match.to("cpu", copy=True).numpy()
+        with device_work():
+            return self.state.match.to("cpu", copy=True).numpy()
 
     def latest_ring(self) -> np.ndarray:
         """The newest known [n, W] term ring (in-flight round if any)."""
         return self._round[7] if self._round is not None else self.m_ring
+
+    def round_snap_term(self, row: int) -> int:
+        """The ring floor's term after the last round, from the round's
+        host copy (never a read of the device buffer, so any thread may
+        call it between rounds)."""
+        return int(self._host_state[_HOST_STATE.index("snap_term")][row])
 
     def latest_commit(self, row: int) -> int:
         arr = self._round[2] if self._round is not None else self.m_commit

@@ -1,20 +1,24 @@
 """Wire types for the consensus core (ref: raft/raftpb/raft.proto).
 
-Ports the part of ``etcd_tpu/raft/types.py`` that the batched rawnode
-and the message codec use: the message and entry type enums, and the
-entry, message and snapshot dataclasses. Field names, defaults and enum
-values are the reference's (tests/test_torch_msgblock.py pins them), so
-an object of either package reads the same through either package's
-rawnode. They are plain dataclasses: on the device path messages travel
-as structure-of-arrays tensors and payload bytes stay in a host arena,
-so the host object model only carries the fields.
+Ports the part of ``etcd_tpu/raft/types.py`` that the batched rawnode,
+the message codec, ``BatchedNode`` and raftexample use: the message,
+entry and conf-change enums, the entry, message, snapshot and hard-state
+dataclasses, and the conf changes with their protobuf-compatible varint
+encoding (empty messages marshal to empty bytes, as
+raft/raftpb/confchange.go:170 MarshalConfChange does). Field names,
+defaults, enum values and encoded bytes are the reference's
+(tests/test_torch_msgblock.py and tests/test_torch_raft_host.py pin
+them), so an object of either package reads the same through either
+package's code. They are plain dataclasses: on the device path messages
+travel as structure-of-arrays tensors and payload bytes stay in a host
+arena, so the host object model only carries the fields.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from enum import IntEnum
-from typing import List
+from typing import List, Optional, Tuple
 
 
 class MessageType(IntEnum):
@@ -48,6 +52,25 @@ class EntryType(IntEnum):
     EntryNormal = 0
     EntryConfChange = 1
     EntryConfChangeV2 = 2
+
+    def __str__(self) -> str:
+        return self.name
+
+
+class ConfChangeType(IntEnum):
+    ConfChangeAddNode = 0
+    ConfChangeRemoveNode = 1
+    ConfChangeUpdateNode = 2
+    ConfChangeAddLearnerNode = 3
+
+    def __str__(self) -> str:
+        return self.name
+
+
+class ConfChangeTransition(IntEnum):
+    ConfChangeTransitionAuto = 0
+    ConfChangeTransitionJointImplicit = 1
+    ConfChangeTransitionJointExplicit = 2
 
     def __str__(self) -> str:
         return self.name
@@ -94,6 +117,25 @@ class ConfState:
     learners_next: List[int] = field(default_factory=list)
     auto_leave: bool = False
 
+    def equivalent(self, other: "ConfState") -> bool:
+        """Compare after sorting (ref: raftpb/confstate.go Equivalent)."""
+        return (
+            sorted(self.voters) == sorted(other.voters)
+            and sorted(self.learners) == sorted(other.learners)
+            and sorted(self.voters_outgoing) == sorted(other.voters_outgoing)
+            and sorted(self.learners_next) == sorted(other.learners_next)
+            and self.auto_leave == other.auto_leave
+        )
+
+    def clone(self) -> "ConfState":
+        return ConfState(
+            voters=list(self.voters),
+            learners=list(self.learners),
+            voters_outgoing=list(self.voters_outgoing),
+            learners_next=list(self.learners_next),
+            auto_leave=self.auto_leave,
+        )
+
 
 @dataclass
 class SnapshotMetadata:
@@ -124,3 +166,183 @@ class Message:
     reject: bool = False
     reject_hint: int = 0
     context: bytes = b""
+
+
+@dataclass
+class HardState:
+    term: int = 0
+    vote: int = 0
+    commit: int = 0
+
+
+EMPTY_HARD_STATE = HardState()
+
+
+def is_empty_hard_state(hs: HardState) -> bool:
+    return hs.term == 0 and hs.vote == 0 and hs.commit == 0
+
+
+def is_empty_snap(s: Snapshot) -> bool:
+    return s.metadata.index == 0
+
+
+# --- Conf changes (ref: raftpb/confchange.go) ---------------------------------
+
+
+@dataclass
+class ConfChangeSingle:
+    type: ConfChangeType = ConfChangeType.ConfChangeAddNode
+    node_id: int = 0
+
+
+@dataclass
+class ConfChange:
+    """V1 conf change: exactly one operation."""
+
+    id: int = 0
+    type: ConfChangeType = ConfChangeType.ConfChangeAddNode
+    node_id: int = 0
+    context: bytes = b""
+
+    def as_v2(self) -> "ConfChangeV2":
+        return ConfChangeV2(
+            changes=[ConfChangeSingle(self.type, self.node_id)],
+            context=self.context,
+        )
+
+    def as_v1(self) -> Tuple[Optional["ConfChange"], bool]:
+        return self, True
+
+    def marshal(self) -> bytes:
+        return _encode_fields(
+            (1, self.id), (2, int(self.type)), (3, self.node_id), (4, self.context)
+        )
+
+    @staticmethod
+    def unmarshal(data: bytes) -> "ConfChange":
+        cc = ConfChange()
+        for tag, val in _decode_fields(data):
+            if tag == 1:
+                cc.id = val
+            elif tag == 2:
+                cc.type = ConfChangeType(val)
+            elif tag == 3:
+                cc.node_id = val
+            elif tag == 4:
+                cc.context = val
+        return cc
+
+
+@dataclass
+class ConfChangeV2:
+    transition: ConfChangeTransition = ConfChangeTransition.ConfChangeTransitionAuto
+    changes: List[ConfChangeSingle] = field(default_factory=list)
+    context: bytes = b""
+
+    def as_v2(self) -> "ConfChangeV2":
+        return self
+
+    def as_v1(self) -> Tuple[Optional[ConfChange], bool]:
+        return None, False
+
+    def enter_joint(self) -> Tuple[bool, bool]:
+        """(autoLeave, useJoint) — ref: raftpb/confchange.go EnterJoint."""
+        if (
+            self.transition != ConfChangeTransition.ConfChangeTransitionAuto
+            or len(self.changes) > 1
+        ):
+            auto_leave = self.transition in (
+                ConfChangeTransition.ConfChangeTransitionAuto,
+                ConfChangeTransition.ConfChangeTransitionJointImplicit,
+            )
+            return auto_leave, True
+        return False, False
+
+    def leave_joint(self) -> bool:
+        """True if this is a zero-change request to leave a joint config."""
+        return (
+            self.transition == ConfChangeTransition.ConfChangeTransitionAuto
+            and not self.changes
+        )
+
+    def marshal(self) -> bytes:
+        parts = [_encode_fields((1, int(self.transition)))]
+        for ch in self.changes:
+            sub = _encode_fields((1, int(ch.type)), (2, ch.node_id))
+            parts.append(_encode_len_field(2, sub))
+        parts.append(_encode_fields((3, self.context)))
+        return b"".join(parts)
+
+    @staticmethod
+    def unmarshal(data: bytes) -> "ConfChangeV2":
+        cc = ConfChangeV2()
+        for tag, val in _decode_fields(data):
+            if tag == 1:
+                cc.transition = ConfChangeTransition(val)
+            elif tag == 2:
+                single = ConfChangeSingle()
+                for stag, sval in _decode_fields(val):
+                    if stag == 1:
+                        single.type = ConfChangeType(sval)
+                    elif stag == 2:
+                        single.node_id = sval
+                cc.changes.append(single)
+            elif tag == 3:
+                cc.context = val
+        return cc
+
+
+def _encode_varint(x: int) -> bytes:
+    out = bytearray()
+    while x >= 0x80:
+        out.append((x & 0x7F) | 0x80)
+        x >>= 7
+    out.append(x)
+    return bytes(out)
+
+
+def _encode_fields(*fields_: Tuple[int, object]) -> bytes:
+    """Encode (tag, value) pairs, omitting zero/empty values."""
+    out = bytearray()
+    for tag, val in fields_:
+        if isinstance(val, bytes):
+            if val:
+                out += _encode_varint(tag << 3 | 2)
+                out += _encode_varint(len(val))
+                out += val
+        else:
+            if val:
+                out += _encode_varint(tag << 3 | 0)
+                out += _encode_varint(int(val))
+    return bytes(out)
+
+
+def _encode_len_field(tag: int, payload: bytes) -> bytes:
+    return _encode_varint(tag << 3 | 2) + _encode_varint(len(payload)) + payload
+
+
+def _decode_fields(data: bytes):
+    i, n = 0, len(data)
+    while i < n:
+        key, i = _decode_varint(data, i)
+        tag, wire = key >> 3, key & 7
+        if wire == 0:
+            val, i = _decode_varint(data, i)
+            yield tag, val
+        elif wire == 2:
+            ln, i = _decode_varint(data, i)
+            yield tag, data[i : i + ln]
+            i += ln
+        else:
+            raise ValueError(f"unsupported wire type {wire}")
+
+
+def _decode_varint(data: bytes, i: int) -> Tuple[int, int]:
+    shift, val = 0, 0
+    while True:
+        b = data[i]
+        i += 1
+        val |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return val, i
+        shift += 7

@@ -262,6 +262,110 @@ def main_path_forms(dev, k=k_plain, hk=hk_plain):
     return forms
 
 
+# The node path (batched/node.py): one row (N = 1) per BatchedNode round,
+# R = 3, E = 8, so the ring lookup meets K = 1, R, E and R*E = 24, at
+# the node tests' window and raftexample's default one.
+NODE_R, NODE_E = 3, 8
+NODE_WINDOWS = (256, 32768)
+
+
+def node_term_cases(w: int, k: int, gen: torch.Generator, dev) -> list:
+    """Seeded N = 1 ring-lookup inputs at window `w` with K = `k`
+    queries: three rings (a fresh log, a full ring that wraps past a
+    multiple of W, a long log one past a wrap) and, over the cases of
+    each ring, every edge query (the floor, one past last, the first
+    and last index, below the floor, the wrap point), padded with
+    in-range queries."""
+    cases = []
+    for si, span in ((0, 40), (3 * w - 5, w - 1), (5 * w + 11, w)):
+        last = si + span
+        log_term = torch.randint(1, 1 << 16, (1, w), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        edges = [si, last + 1, si + 1, last, si - 1, (si // w + 1) * w]
+        for lo in range(0, len(edges), k):
+            q = edges[lo:lo + k]
+            pad = torch.randint(si + 1, last + 1, (k - len(q),),
+                                generator=gen, device=dev,
+                                dtype=torch.int32)
+            idx = torch.cat([torch.tensor(q, dtype=torch.int32,
+                                          device=dev), pad]).view(1, k)
+            cases.append((log_term,
+                          torch.tensor([si], dtype=torch.int32, device=dev),
+                          torch.randint(1, 1 << 16, (1,), generator=gen,
+                                        device=dev, dtype=torch.int32),
+                          torch.tensor([last], dtype=torch.int32,
+                                       device=dev),
+                          idx if k > 1 else idx[:, 0].contiguous()))
+    return cases
+
+
+def node_quorum_cases(gen: torch.Generator, dev, tallies: int = 1) -> list:
+    """Seeded N = 1 quorum inputs at R = 3: all voters, a joint config,
+    a single voter, an empty config and an empty joint config."""
+    r = NODE_R
+    masks = [((1, 1, 1), (0, 0, 0), False), ((1, 1, 0), (1, 0, 1), True),
+             ((0, 1, 0), (0, 0, 0), False), ((0, 0, 0), (0, 0, 0), False),
+             ((0, 0, 0), (0, 0, 0), True)]
+    cases = []
+    for voter, voter_out, joint in masks:
+        def mask(v):
+            return torch.tensor([v], dtype=torch.bool, device=dev)
+        match = torch.randint(0, 1 << 20, (tallies, r), generator=gen,
+                              device=dev, dtype=torch.int32)
+        votes = torch.randint(-1, 2, (tallies, r), generator=gen,
+                              device=dev, dtype=torch.int32)
+        cases.append((match, mask(voter), mask(voter_out),
+                      torch.tensor([joint], device=dev), votes))
+    return cases
+
+
+def node_path_forms(dev, hk=hk_plain) -> list:
+    """Every form a BatchedNode round gives the two kernels, at N = 1:
+    like main_path_forms, with `cases` (every seeded case, each to be
+    held equal to the plain form) and `call`/`plain` on the timed case
+    (B1: the joint config; B2: the long log's last case), whose bytes
+    and operations the bound counts."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = "quorum_commit_vote"
+    r = NODE_R
+    support_ops = r + r * (2 * r + 2)  # the O(R^2) support loop of a half
+    io_bytes = 2 * r + 1 + 4 * r + 4   # masks, one tally row, its result
+    forms = []
+    for key, tallies, ops, run, plain in (
+            (f"{q} commit R={r} B=1", 1, 2 * support_ops,
+             lambda c: hk.quorum_commit(*c[:4]),
+             lambda c: hk_plain.quorum_commit_ref(*c[:4])),
+            (f"{q} vote R={r} B=1", 1, 2 * 4 * r,
+             lambda c: hk.quorum_vote(c[4], *c[1:4]),
+             lambda c: hk_plain.quorum_vote_ref(c[4], *c[1:4])),
+            (f"{q} vote R={r} B={r}", r, r * 2 * 4 * r,
+             lambda c: hk.quorum_vote(c[4], *c[1:4], r),
+             lambda c: hk_plain.quorum_vote_ref(c[4], *c[1:4], r))):
+        cases = [(lambda c=c, f=run: f(c), lambda c=c, f=plain: f(c))
+                 for c in node_quorum_cases(gen, dev, tallies)]
+        forms.append({"key": key, "n": 1, "cases": cases,
+                      "call": cases[1][0], "plain": cases[1][1],
+                      "bytes": io_bytes + (tallies - 1) * (4 * r + 4),
+                      "ops": ops})
+    for w in NODE_WINDOWS:
+        for k in (1, NODE_R, NODE_E, NODE_R * NODE_E):
+            args = node_term_cases(w, k, gen, dev)
+            cases = [(lambda a=a: hk.term_at_batch(*a),
+                      lambda a=a: hk_plain.term_at_batch_ref(*a))
+                     for a in args]
+            _, si, _, last, idx = args[-1]
+            flat = idx.view(-1)
+            reads = torch.unique(flat[(flat > si) & (flat <= last)] % w)
+            forms.append({"key": f"term_at_batch K={k} W={w}", "n": 1,
+                          "cases": cases, "call": cases[-1][0],
+                          "plain": cases[-1][1],
+                          # the bounds and queries, the result, and the
+                          # distinct ring slots the queries read
+                          "bytes": 4 * (3 + 2 * k + reads.numel()),
+                          "ops": 8 * k})
+    return forms
+
+
 def time_form(form: dict, plain: bool = True) -> dict:
     """A form's device time warm and L2-cold, its call time, its bound
     and, with `plain`, its plain form's device and call times."""

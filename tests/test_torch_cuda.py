@@ -9,6 +9,8 @@ CUDA alone:
 (--noconftest: the suite's conftest imports JAX.)
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -419,3 +421,131 @@ def test_rawnode_defaults_to_the_gpu(dev):
 
     rn = BatchedRawNode(bench_config(4))
     assert rn.state.term.is_cuda and rn.device.type == "cuda"
+
+
+# -- the raft.Node boundary and raftexample on the card --------------------------
+
+
+def eager_nodes(dev):
+    """A node set whose rawnodes run their rounds eagerly on the card."""
+    ns = chip_smoke.NodeSet(dev)
+    for n in ns.nodes.values():
+        n.rn._graphs.run = (lambda key, body, times=1, **info:
+                            [body() for _ in range(times)])
+    return ns
+
+
+def test_graphed_nodes_equal_eager_ones(dev):
+    """chip_smoke's node schedule (election, forwarded puts, ReadIndex, a
+    transfer, a voter removed and re-added, a compaction with a MsgSnap
+    catch-up) through graphed nodes and eager nodes in lockstep: Ready
+    for Ready and status for status equal; one capture per node."""
+    sets = [chip_smoke.NodeSet(dev), eager_nodes(dev)]
+    steps = chip_smoke.node_schedule(sets, chip_smoke.PARITY_LOAD)
+    assert steps["snapshots_installed"]
+    assert {n.rn.captures for n in sets[0].nodes.values()} == {1}
+    assert {n.rn.captures for n in sets[1].nodes.values()} == {0}
+    assert chip_smoke.check_node_set(sets[0]) == chip_smoke.check_node_set(
+        sets[1])
+
+
+def test_node_round_makes_one_host_sync(dev):
+    """After the capture, whole node turns (ready, apply, route, advance)
+    under sync debug mode "error", except for each round's one wait."""
+    ns = chip_smoke.NodeSet(dev)
+    chip_smoke.node_until([ns], lambda s: s.settled(), "election")
+    waits = []
+    for n in ns.nodes.values():
+        def wait(inner=n.rn._wait):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                inner()
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+            waits.append(1)
+        n.rn._wait = wait
+    rounds = ns.node_rounds
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chip_smoke.node_load([ns], np.random.RandomState(1), 20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(waits) == ns.node_rounds - rounds == 60
+    assert {n.rn.captures for n in ns.nodes.values()} == {1}
+
+
+def test_node_defaults_to_the_gpu(dev):
+    from etcd_tpu_torch.batched.node import BatchedNode
+
+    n = BatchedNode(1, [1, 2, 3])
+    assert n.rn.device.type == "cuda" and n.rn.state.term.is_cuda
+
+
+def test_members_capture_side_by_side_in_threads(dev):
+    """Three nodes, each driven by a thread of its own that starts its
+    first round behind a barrier, so the three captures and then the
+    replays run at the same time: no error, one capture each, and every
+    put commits on every member."""
+    import queue
+    import threading
+
+    from etcd_tpu_torch.batched.node import BatchedNode
+    from etcd_tpu_torch.raft.types import EntryType
+
+    nodes = {i: BatchedNode(i, [1, 2, 3], device=dev) for i in (1, 2, 3)}
+    inbox = {i: queue.Queue() for i in nodes}
+    applied = {i: [] for i in nodes}
+    barrier = threading.Barrier(3)
+    stop = threading.Event()
+    errors = []
+
+    def loop(i):
+        n = nodes[i]
+        try:
+            barrier.wait()
+            while not stop.is_set():
+                while not inbox[i].empty():
+                    n.step(inbox[i].get())
+                n.tick()
+                rd = n.ready(timeout=0.01)
+                if rd is None:
+                    continue
+                applied[i] += [e.data for e in rd.committed_entries
+                               if e.type == EntryType.EntryNormal and e.data]
+                for m in rd.messages:
+                    inbox[m.to].put(m)
+                n.advance()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=loop, args=(i,)) for i in nodes]
+    for t in threads:
+        t.start()
+    puts = [b"put-%03d" % k for k in range(200)]
+    try:
+        deadline = time.monotonic() + 120
+        lead = 0
+        while not lead and time.monotonic() < deadline and not errors:
+            lead = next((i for i, n in nodes.items() if n.rn.is_leader(0)), 0)
+            time.sleep(0.01)
+        assert lead, errors
+        for p in puts:
+            nodes[lead].propose(p)
+        while (time.monotonic() < deadline and not errors
+               and any(len(a) < len(puts) for a in applied.values())):
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(30)
+    assert not errors, errors
+    assert all(a == puts for a in applied.values())
+    assert {n.rn.captures for n in nodes.values()} == {1}
+
+
+def test_raftexample_members_on_the_card(dev):
+    """raftexample's three members on the card, each in its own threads,
+    with a WAL and snapshots on disk and one member stopped and restarted
+    from them (chip_smoke's raftexample phase at 300 puts): equal maps,
+    one capture per rawnode."""
+    chip_smoke.run_raftexample(dev, puts=300, timeout_s=120)

@@ -138,17 +138,25 @@ def test_bench_reads_the_jax_bench_variables(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the rawnode, the message
-    codec and the raft types among them), and chip_smoke, loads neither
-    jax nor any module of the JAX package."""
+    """Importing every module of the port (the rawnode, the node, the
+    message codec, the raft host pieces, raftexample, the WAL and its
+    native library among them), building and loading the walog library,
+    and importing chip_smoke load neither jax nor any module of the JAX
+    package."""
     code = """
 import pkgutil, sys
 import etcd_tpu_torch
 for m in pkgutil.walk_packages(etcd_tpu_torch.__path__, "etcd_tpu_torch."):
     __import__(m.name)
+from etcd_tpu_torch.native import walog
+walog._lib()
 import chip_smoke
 for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
-          "etcd_tpu_torch.batched.graph", "etcd_tpu_torch.raft.types"):
+          "etcd_tpu_torch.batched.graph", "etcd_tpu_torch.raft.types",
+          "etcd_tpu_torch.batched.node", "etcd_tpu_torch.raft.confchange",
+          "etcd_tpu_torch.raft.storage", "etcd_tpu_torch.raftexample.raftnode",
+          "etcd_tpu_torch.storage.wal", "etcd_tpu_torch.storage.snap",
+          "etcd_tpu_torch.native.walog", "etcd_tpu_torch.pkg.metrics"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))
