@@ -14,7 +14,14 @@ the whole round on CUDA against the same round on the CPU, drives the
 hosted path (three BatchedRawNode members of G=65,536 groups each, every
 member's round a graph replay, proposals with payloads committed on
 every member), holds hosted members on CUDA against hosted members on
-the CPU, drives the raft.Node boundary (three BatchedNodes at
+the CPU, drives the apply plane (its dispatch alone at G=65,536 rows, a
+CUDA graph held against the eager dispatch and against PlaneOracle on
+the sampled, armed-watch and overflowing rows; then three plane-on
+members folding KV proposals, each leader's plane held against an
+oracle replay of its committed stream, and a 1,024-row capture restored
+into another member), holds plane-on members on CUDA against the CPU
+and runs a plane dispatch beside another member's capture in a thread,
+drives the raft.Node boundary (three BatchedNodes at
 raftexample's default width: 10,032 puts, a third forwarded, ReadIndex,
 a transfer, a voter removed and re-added, a compaction with a MsgSnap
 catch-up), holds CUDA nodes against CPU nodes Ready for Ready, and runs
@@ -28,8 +35,9 @@ Line protocol (stdout): one line per phase (the kernels phase times
 every main-path and node-path form warm and L2-cold; the slice phase
 counts launches per kernel and per form), a line with each phase's wall
 seconds, then a JSON line {"kernels": [...]} with every kernel's
-launches on each path (the engine's, the hosted one, the node's and
-raftexample's, each counted from 0 around its run), at its most
+launches on each path (the engine's, the hosted one, the plane-on
+hosted one, the node's and raftexample's, each counted from 0 around
+its run), at its most
 launched engine form its device time warm and cold, plain-version time
 and bound, and every form with its launches per engine, rawnode and
 node round; then the card's name and power limit as nvidia-smi reports
@@ -564,6 +572,7 @@ def run_parity(dev, plain_dev=torch.device("cpu")) -> None:
 
 MEMBERS = (1, 2, 3)
 PAYLOAD_BYTES = 64
+KV_KEYS = 32  # the key space of Harness.propose_kv
 LOAD_ROUNDS = 4
 PROPS_PER_ROUND = 2  # proposals per group per load round
 
@@ -637,18 +646,43 @@ class Harness:
             "stage", "step", "extract", "collect", "harness", "advance")}
             for mid in rns}
         self.round_ms = []
+        # on_ready(mid, rd), if set, sees every Ready right after its
+        # advance_round.
+        self.on_ready = None
 
     def propose(self, rng, per_group: int) -> None:
         """`per_group` seeded 64-byte payloads on every group's leader
         (group g is led by member g mod 3 + 1)."""
         n = len(self.proposed)
         buf = rng.bytes(PAYLOAD_BYTES * per_group * n)
+        self._propose([buf[off:off + PAYLOAD_BYTES] for off in range(
+            0, PAYLOAD_BYTES * per_group * n, PAYLOAD_BYTES)], per_group)
+
+    def propose_kv(self, rng, per_group: int) -> None:
+        """`per_group` seeded KV payloads on every group's leader, in the
+        apply plane's forms: puts of a 16-byte value to one of KV_KEYS
+        keys, a fifth of them with a lease of 1-6 ticks, and deletes."""
+        from etcd_tpu_torch.batched.applyplane import (
+            delete_payload,
+            put_payload,
+        )
+
+        m = per_group * len(self.proposed)
+        keys = rng.randint(0, KV_KEYS, m).tolist()
+        kind = rng.rand(m)
+        ttls = rng.randint(1, 7, m).tolist()
+        vals = rng.bytes(16 * m)
+        datas = [delete_payload(b"k%d" % keys[j]) if kind[j] < 0.15 else
+                 put_payload(b"k%d" % keys[j], vals[16 * j:16 * j + 16],
+                             ttls[j] if kind[j] > 0.8 else 0)
+                 for j in range(m)]
+        self._propose(datas, per_group)
+
+    def _propose(self, datas: list, per_group: int) -> None:
         now = time.perf_counter()
-        for g in range(n):
+        for g in range(len(self.proposed)):
             rn = self.rns[g % len(MEMBERS) + 1]
-            for k in range(per_group):
-                off = (g * per_group + k) * PAYLOAD_BYTES
-                data = buf[off:off + PAYLOAD_BYTES]
+            for data in datas[g * per_group:(g + 1) * per_group]:
                 rn.propose(g, data)
                 self.proposed[g].append(data)
                 self.inflight[g].append((self.rounds, now))
@@ -658,6 +692,8 @@ class Harness:
         route, apply) and advance, each timed."""
         rn = self.rns[mid]
         rd = rn.advance_round()
+        if self.on_ready is not None:
+            self.on_ready(mid, rd)
         t0 = time.perf_counter()
         times = self.times[mid]
         for k, v in rn.phase_last.items():
@@ -747,12 +783,13 @@ def elect_balanced(h: Harness, max_rounds: int = 8) -> int:
 
 
 def load_and_drain(h: Harness, rng, load_rounds: int, max_drain: int = 16,
-                   during=None) -> int:
-    """`load_rounds` rounds with PROPS_PER_ROUND proposals per group, then
-    rounds until quiet; `during(i)`, if given, runs load round i in
-    place of h.round(). Returns the drain rounds."""
+                   during=None, propose=None) -> int:
+    """`load_rounds` rounds with PROPS_PER_ROUND proposals per group
+    (h.propose's, or `propose`'s), then rounds until quiet; `during(i)`,
+    if given, runs load round i in place of h.round(). Returns the drain
+    rounds."""
     for i in range(load_rounds):
-        h.propose(rng, PROPS_PER_ROUND)
+        (propose or h.propose)(rng, PROPS_PER_ROUND)
         if during is None:
             h.round()
         else:
@@ -897,14 +934,15 @@ def leaders_of(rns: dict) -> dict:
             for row in np.nonzero(rn.m_role == LEADER)[0].tolist()}
 
 
-def hosted_schedule(rnd: int, rns: dict, cfg) -> None:
+def hosted_schedule(rnd: int, rns: dict, cfg, payload=None) -> None:
     """Round `rnd`'s staged inputs for one member set, a function of the
     round and the set's own mirrors (equal sets get equal inputs):
     balanced campaigns (timer elections under pre-vote), a tick, seeded
     proposals with some conf-change etypes on each group's leader, and
     the staged edits: ReadIndex, a leader transfer, membership masks,
     a fence, compaction with append pokes, and a member cut off from 32
-    groups for long enough to be sent MsgSnap."""
+    groups for long enough to be sent MsgSnap. `payload(rng)` makes each
+    proposal's bytes (default: 16 seeded bytes)."""
     g = cfg.num_groups
     if rnd == 0 and not cfg.pre_vote:
         for mid, rn in rns.items():
@@ -915,8 +953,8 @@ def hosted_schedule(rnd: int, rns: dict, cfg) -> None:
     rng = np.random.RandomState(SEED + rnd)
     for grp in sorted(lead):
         for _ in range(int(rng.randint(0, cfg.max_props_per_round + 1))):
-            rns[lead[grp]].propose(grp, rng.bytes(16),
-                                   etype=int(rng.rand() < 0.1))
+            data = rng.bytes(16) if payload is None else payload(rng)
+            rns[lead[grp]].propose(grp, data, etype=int(rng.rand() < 0.1))
     if rnd == 8:
         for grp in range(16):
             if grp in lead:
@@ -958,14 +996,17 @@ def assert_members_equal(a, b, context: str) -> None:
             raise AssertionError(f"{context}: {f} differs")
 
 
-def hosted_lockstep(cfg, sets: list, rounds: int, label: str) -> dict:
-    """Member sets driven through hosted_schedule in lockstep, each set
-    routing its own traffic; after every member round the sets' Ready
-    digests and each member's state and mirrors are equal."""
+def hosted_lockstep(cfg, sets: list, rounds: int, label: str,
+                    schedule=hosted_schedule,
+                    check=assert_members_equal) -> dict:
+    """Member sets driven through `schedule` (hosted_schedule) in
+    lockstep, each set routing its own traffic; after every member round
+    the sets' Ready digests are equal, and `check` holds each member
+    against its counterpart (state and mirrors)."""
     snaps = 0
     for rnd in range(rounds):
         for rns in sets:
-            hosted_schedule(rnd, rns, cfg)
+            schedule(rnd, rns, cfg)
         for mid in MEMBERS:
             digests = []
             for rns in sets:
@@ -978,7 +1019,7 @@ def hosted_lockstep(cfg, sets: list, rounds: int, label: str) -> dict:
             if any(d != digests[0] for d in digests[1:]):
                 raise AssertionError(f"{context}: Readys differ")
             for rns in sets[1:]:
-                assert_members_equal(sets[0][mid], rns[mid], context)
+                check(sets[0][mid], rns[mid], context)
     rns = sets[0]
     return {"rounds": rounds, "snapshots_installed": snaps,
             "leaders": len(leaders_of(rns)),
@@ -998,6 +1039,550 @@ def run_hosted_parity(dev, plain_dev=torch.device("cpu")) -> None:
         if res["leaders"] != 256 or not res["snapshots_installed"]:
             raise AssertionError(f"hosted_parity {label}: {res}")
         log("hosted_parity", config=label, groups=256, equal=True, **res)
+
+
+# -- phase: plane (the apply plane at full width) -------------------------------
+
+PLANE_DISPATCHES = 40
+PLANE_POOL = 48  # keys per ordinary row (fewer than C = 256 slots)
+PLANE_OVERFLOW_ROWS = 8  # rows that put fresh keys in every lane
+PLANE_WATCH_ROWS = 64
+PLANE_SAMPLE_ROWS = 256  # other rows held against the oracle
+PLANE_LOAD_ROUNDS = 3
+PLANE_CAPTURE_ROWS = 1024
+
+
+def plane_config(groups: int, base=None):
+    """The bench config (or `base`) with the apply plane on, at the
+    config's plane defaults (C = 256, WS = 8, A = 8)."""
+    from etcd_tpu_torch.tools.benchlib import bench_config
+
+    return (base or bench_config(groups))._replace(apply_plane=True)
+
+
+def plane_workload(n: int, a: int, dispatches: int, seed: int) -> tuple:
+    """Seeded record lanes for `dispatches` dispatches over n rows: each
+    row puts (a third with a 1-5 tick lease) and deletes up to A records
+    of its own PLANE_POOL keys, the tick advancing 0-2 per dispatch;
+    PLANE_OVERFLOW_ROWS rows (the first rows of the returned `special`)
+    put a fresh key in every lane, so they pass C keys and overflow.
+    Returns (special rows, the key pools, [(ops, keys, vals, ttls,
+    tick_add)])."""
+    from etcd_tpu_torch.batched.applyplane import OP_DEL, OP_PUT
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 1 << 31, (n, PLANE_POOL)).astype(np.int32)
+    special = rng.choice(n, PLANE_OVERFLOW_ROWS + PLANE_WATCH_ROWS,
+                         replace=False)
+    over = special[:PLANE_OVERFLOW_ROWS]
+    col = np.arange(a)[None, :]
+    steps = []
+    for _ in range(dispatches):
+        lane = col < rng.integers(0, a + 1, (n, 1))
+        put = rng.random((n, a)) < 0.7
+        ops = np.where(lane, np.where(put, OP_PUT, OP_DEL), 0)
+        keys = np.where(lane, np.take_along_axis(
+            pool, rng.integers(0, PLANE_POOL, (n, a)), axis=1), 0)
+        vals = np.where(ops == OP_PUT, rng.integers(1, 1 << 31, (n, a)), 0)
+        ttls = np.where((ops == OP_PUT) & (rng.random((n, a)) < 0.3),
+                        rng.integers(1, 6, (n, a)), 0)
+        ops[over] = OP_PUT
+        keys[over] = rng.integers(1, 1 << 31, (len(over), a))
+        vals[over] = rng.integers(1, 1 << 31, (len(over), a))
+        ttls[over] = 0
+        tick_add = rng.integers(0, 3, n)
+        steps.append(tuple(x.astype(np.int32)
+                           for x in (ops, keys, vals, ttls, tick_add)))
+    return special, pool, steps
+
+
+def plane_bound(n: int, c: int, ws: int, a: int) -> "tuple[float, str]":
+    """The least time of one dispatch on the card: the four [n, C] slot
+    lanes read once and written once, the records, tick advance and
+    watch keys read once, the [n] state lanes read and written, the
+    frame written; or its integer operations (per slot, the expiry
+    test and clear, and per record a match and a free test, a score and
+    its max) at the 32-bit rate."""
+    from etcd_tpu_torch.tools.kernel_times import bound_ms
+
+    nbytes = (4 * n * c * 4 * 2 + (4 * n * a + n + n * ws) * 4
+              + 4 * n * 4 * 2 + (4 * n * a + 5 * n) * 4 + n)
+    ops = n * c * (6 + 4 * a)
+    return bound_ms(nbytes, ops)
+
+
+class PlaneOwner:
+    """A plane and its record inputs in buffers kept for its lifetime,
+    as a plane-on rawnode keeps them: each dispatch copies the records
+    in and, on CUDA, replays one CUDA graph of dispatch() whose frame
+    lands in frame buffers (graphed=False, or the CPU, calls dispatch()
+    eagerly)."""
+
+    def __init__(self, cfg, n: int, dev, graphed: bool):
+        from etcd_tpu_torch.batched.applyplane import init_plane
+        from etcd_tpu_torch.batched.graph import RoundGraphs
+        from etcd_tpu_torch.batched.state import I32
+
+        a = cfg.apply_records
+        self.plane = init_plane(cfg, n, device=dev)
+        self.inputs = tuple(torch.zeros((n, a) if k < 4 else (n,),
+                                        dtype=I32, device=dev)
+                            for k in range(5))
+        self.frame = None
+        self.graphed = graphed and dev.type == "cuda"
+        self.graphs = RoundGraphs()
+
+    def _body(self):
+        from etcd_tpu_torch.batched.applyplane import dispatch
+
+        frame = dispatch(self.plane, *self.inputs)
+        if self.frame is None:
+            self.frame = [torch.empty_like(x) for x in frame]
+        for buf, x in zip(self.frame, frame):
+            buf.copy_(x)
+
+    def dispatch(self, step) -> float:
+        """One dispatch of `step`'s numpy records; returns the device ms
+        of the dispatch alone (CUDA events around it)."""
+        for buf, x in zip(self.inputs, step):
+            buf.copy_(torch.from_numpy(x))
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        if self.graphed:
+            self.graphs.run("plane", self._body)
+        else:
+            self._body()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
+def oracle_check(cfg, plane, frames_rows: list, rows, watch, steps) -> int:
+    """Replay `steps` for `rows` through PlaneOracle (with the rows'
+    armed watches `watch` [len(rows), WS]) and hold the plane's rows
+    slot for slot, and each dispatch's events (`frames_rows`: per
+    dispatch the rows' ev_op, ev_key, ev_rev, ev_wmask and expired, on
+    the host), to it. Returns the events compared."""
+    from etcd_tpu_torch.batched.applyplane import KV_LANES, PlaneOracle
+
+    rows_t = torch.as_tensor(rows, dtype=torch.int64, device=plane.rev.device)
+    got = {f: getattr(plane, f).index_select(0, rows_t).cpu().numpy()
+           for f in plane._fields}
+    events = 0
+    for j, r in enumerate(rows.tolist()):
+        o = PlaneOracle(cfg)
+        o.watch_key = watch[j].tolist()
+        for step in steps:
+            ops, keys, vals, ttls, tick_add = (x[r] for x in step)
+            o.dispatch(list(zip(ops.tolist(), keys.tolist(), vals.tolist(),
+                                ttls.tolist())), int(tick_add))
+        for f in KV_LANES:
+            if got[f][j].tolist() != getattr(o, f):
+                raise AssertionError(f"plane row {r}: {f} != the oracle's")
+        if (int(got["rev"][j]), int(got["tick"][j]),
+                bool(got["overflow"][j]), int(got["slots_hw"][j])) != (
+                o.rev, o.tick, o.overflow, o.slots_hw):
+            raise AssertionError(f"plane row {r}: counters != the oracle's")
+        evs = [tuple(int(x[j, k]) for x in fr[:4])
+               for fr in frames_rows for k in range(cfg.apply_records)
+               if fr[0][j, k] != 0]
+        if evs != o.events or sum(int(fr[4][j]) for fr in frames_rows) != (
+                o.expired):
+            raise AssertionError(f"plane row {r}: events != the oracle's")
+        events += len(evs)
+    return events
+
+
+def plane_dispatch_check(dev, n: int, dispatches: int = PLANE_DISPATCHES,
+                         sample: int = PLANE_SAMPLE_ROWS) -> dict:
+    """The dispatch alone over n rows: a graphed and an eager plane fold
+    the same seeded records; every frame and the final planes are equal,
+    the armed-watch rows, the overflowing rows and `sample` other rows
+    equal PlaneOracle's replay slot for slot with the same events, and
+    gather_rows equals indexing. Returns the times and counts."""
+    from etcd_tpu_torch.batched.applyplane import gather_rows
+    from etcd_tpu_torch.tools.kernel_times import _device_us, profile_kernels
+
+    cfg = plane_config(n)
+    a, ws, c = cfg.apply_records, cfg.apply_watch_slots, cfg.apply_capacity
+    special, pool, steps = plane_workload(n, a, dispatches, SEED)
+    watch_rows = special[PLANE_OVERFLOW_ROWS:]
+    rest = np.setdiff1d(np.arange(n), special)
+    others = np.random.default_rng(SEED + 1).choice(
+        rest, min(sample, len(rest)), replace=False)
+    rows = np.concatenate([special, others])
+    watch = np.zeros((n, ws), np.int32)
+    watch[watch_rows, 0] = pool[watch_rows, 0]
+    watch[watch_rows, ws - 1] = pool[watch_rows, 1]
+    owners = [PlaneOwner(cfg, n, dev, graphed) for graphed in (True, False)]
+    for o in owners:
+        o.plane.watch_key.copy_(torch.from_numpy(watch))
+    rows_t = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+    graph_ms, eager_ms, frames_rows = [], [], []
+    for i, step in enumerate(steps):
+        graph_ms.append(owners[0].dispatch(step))
+        eager_ms.append(owners[1].dispatch(step))
+        for f, x, y in zip(("ev_op", "ev_key", "ev_rev", "ev_wmask", "puts",
+                            "dels", "expired", "slots_used", "leases",
+                            "overflow"), owners[0].frame, owners[1].frame):
+            if not torch.equal(x, y):
+                raise AssertionError(f"plane dispatch {i}: graphed frame {f} "
+                                     "!= the eager one")
+        frames_rows.append([x.index_select(0, rows_t).cpu().numpy()
+                            for x in owners[0].frame[:4]]
+                           + [owners[0].frame[6].index_select(0, rows_t)
+                              .cpu().numpy()])
+    for f, x, y in zip(owners[0].plane._fields, owners[0].plane,
+                       owners[1].plane):
+        if not torch.equal(x, y):
+            raise AssertionError(f"plane: graphed {f} != the eager one")
+    plane = owners[0].plane
+    events = oracle_check(cfg, plane, frames_rows, rows, watch[rows], steps)
+    over = special[:PLANE_OVERFLOW_ROWS]
+    if not plane.overflow[torch.as_tensor(over, device=dev)].all():
+        raise AssertionError("an overflow row did not overflow")
+    for got, f in zip(gather_rows(plane, rows),
+                      ("kv_key", "kv_rev", "kv_val", "kv_lease", "rev",
+                       "tick", "overflow")):
+        if not torch.equal(got, getattr(plane, f)[rows_t]):
+            raise AssertionError(f"gather_rows {f} != indexing")
+    kernels = profile_kernels(lambda: owners[1].dispatch(steps[-1]))
+    copies = [e for e in kernels if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = sorted((e for e in kernels if e not in copies),
+                     key=lambda e: -_device_us(e))
+    bound, bound_by = plane_bound(n, c, ws, a)
+    warm = graph_ms[1:]
+    return {
+        "rows": n, "C": c, "WS": ws, "A": a, "dispatches": dispatches,
+        "graphed_eq_eager": True, "oracle_rows": len(rows),
+        "oracle_events": events, "overflow_rows": int(plane.overflow.sum()),
+        "device_ms_per_dispatch": statistics.median(warm),
+        "device_ms_per_dispatch_runs": warm,
+        "eager_ms_per_dispatch": statistics.median(eager_ms[1:]),
+        "launches_per_dispatch": sum(e.count for e in kernels),
+        "kernel_ms_per_dispatch": sum(map(_device_us, kernels)) / 1e3,
+        "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                         "device_us": _device_us(e)} for e in kernels[:8]],
+        "bound_ms": bound, "bound_by": bound_by,
+        "plane_bytes": sum(x.nbytes for x in plane)}
+
+
+def plane_log_records(items) -> list:
+    """The apply records one row's committed items make, as the rawnode
+    makes them (conf entries, holes and non-KV payloads skipped)."""
+    from etcd_tpu_torch.batched.applyplane import (
+        OP_PUT,
+        fnv1a32,
+        parse_payload,
+    )
+
+    out = []
+    for _i, _t, d, et in items:
+        p = parse_payload(d) if et == 0 and d else None
+        if p is not None:
+            op, k, v, ttl = p
+            out.append((op, fnv1a32(k), fnv1a32(v) if op == OP_PUT else 0,
+                        ttl if op == OP_PUT else 0))
+    return out
+
+
+def time_plane(rn, stats: dict) -> None:
+    """Time member `rn`'s plane: the wall ms of each _plane_dispatch
+    (parse, hash, stage, the replays and their wait), on CUDA the device
+    ms of each replay of the plane graph (CUDA events), and the host ms
+    of each _plane_dispatch: its wall less its replays' device time."""
+    inner_dispatch, inner_run = rn._plane_dispatch, rn._graphs.run
+    cuda = rn._cuda
+
+    def plane_dispatch(committed, ticks):
+        t0 = time.perf_counter()
+        before = len(stats["replays"])
+        chunks = rn.plane_stats["dispatches"]
+        inner_dispatch(committed, ticks)
+        wall = (time.perf_counter() - t0) * 1e3
+        device = [s.elapsed_time(e) for s, e in stats["replays"][before:]
+                  if s]
+        stats["wall_ms"].append(wall)
+        stats["host_ms"].append(wall - sum(device))
+        stats["chunks"].append(rn.plane_stats["dispatches"] - chunks)
+        stats["device_ms"].extend(device)
+
+    def run(key, body, times=1, **info):
+        if key != "plane":
+            return inner_run(key, body, times, **info)
+        if not cuda:
+            stats["replays"].append((None, None))
+            return inner_run(key, body, times, **info)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        inner_run(key, body, times, **info)
+        end.record()
+        stats["replays"].append((start, end))
+
+    rn._plane_dispatch, rn._graphs.run = plane_dispatch, run
+
+
+def run_plane_hosted(dev, groups: int = MAIN_GROUPS,
+                     load_rounds: int = PLANE_LOAD_ROUNDS) -> dict:
+    """Three plane-on members of `groups` groups (the bench config),
+    balanced leaders, KV proposals (Harness.propose_kv) for
+    `load_rounds` rounds, drained until quiet: every proposal commits on
+    every member; each leader's plane on the sampled rows equals a
+    PlaneOracle replay of that leader's committed stream, with the same
+    watch events; a 1,024-row plane_capture restored into another member
+    captures equal there. Returns the kernel launches of the load."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.batched.applyplane import PlaneOracle, fnv1a32
+    from etcd_tpu_torch.batched.graph import device_work
+
+    cuda = dev.type == "cuda"
+    cfg = plane_config(groups)
+    ws = cfg.apply_watch_slots
+    rng = np.random.RandomState(SEED + 5)
+    t0 = time.perf_counter()
+    h = Harness(hosted_members(cfg, dev))
+    setup_s = time.perf_counter() - t0
+    rows = np.unique(np.linspace(0, groups - 1, PLANE_SAMPLE_ROWS)
+                     .astype(np.int64))
+    row_set = set(rows.tolist())
+    watch = (fnv1a32(b"k1"), fnv1a32(b"k2"))
+    for rn in h.rns.values():
+        for r in rows.tolist():
+            rn.watch_set(r, 0, watch[0])
+            rn.watch_set(r, ws - 1, watch[1])
+    log = {mid: [] for mid in MEMBERS}  # per member round: row -> items
+    h.on_ready = lambda mid, rd: log[mid].append(
+        {row: items for row, items in rd.committed if row in row_set})
+    stats = {mid: {"wall_ms": [], "host_ms": [], "device_ms": [],
+                   "chunks": [], "replays": []} for mid in MEMBERS}
+    for mid, rn in h.rns.items():
+        time_plane(rn, stats[mid])
+    elect_balanced(h)
+    for st in stats.values():
+        for v in st.values():
+            v.clear()
+    hk.reset_launches()
+    base = h.rounds
+    t0 = time.perf_counter()
+    drain = load_and_drain(h, rng, load_rounds, propose=h.propose_kv)
+    wall_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    forms = dict(hk.FORM_LAUNCHES)
+    h.check()
+    # Each sampled row against the oracle, on its leader: one dispatch
+    # per member round (every round ticks every row once).
+    events = 0
+    drained = {mid: rn.drain_plane_events() for mid, rn in h.rns.items()}
+    for mid, rn in h.rns.items():
+        mine = rows[rows % len(MEMBERS) == mid - 1]
+        caps = rn.plane_capture(mine)
+        with device_work():
+            hw = rn.plane.slots_hw.cpu().numpy()
+        for r, cap in zip(mine.tolist(), caps):
+            o = PlaneOracle(cfg)
+            o.watch_key[0], o.watch_key[ws - 1] = watch
+            for got in log[mid]:
+                o.dispatch(plane_log_records(got.get(r, ())), 1)
+            want = {**o.state(), "tick": o.tick}
+            for f in ("kv_key", "kv_rev", "kv_val", "kv_lease", "rev",
+                      "tick", "overflow"):
+                if cap[f] != want[f]:
+                    raise AssertionError(f"member {mid} row {r}: plane {f} "
+                                         "!= the oracle's")
+            if int(hw[r]) != o.slots_hw:
+                raise AssertionError(f"member {mid} row {r}: slots_hw")
+            evs = [e[1:] for e in drained[mid] if e[0] == r]
+            if evs != [e for e in o.events if e[3]]:
+                raise AssertionError(f"member {mid} row {r}: watch events")
+            events += len(evs)
+    if not events:
+        raise AssertionError("no watch event on the sampled rows")
+    # A capture restored into another member captures equal there (its
+    # round runs with no tick and nothing to commit, so no dispatch).
+    cap_rows = np.unique(np.linspace(
+        0, groups - 1, min(PLANE_CAPTURE_ROWS, groups)).astype(np.int64))
+    t0 = time.perf_counter()
+    caps = h.rns[1].plane_capture(cap_rows)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    for r, cap in zip(cap_rows.tolist(), caps):
+        h.rns[2].plane_restore_row(
+            r, cap["kv_key"], cap["kv_rev"], cap["kv_val"], cap["kv_lease"],
+            cap["rev"], cap["tick"], cap["overflow"], cap["applied"],
+            lessor=[(bytes.fromhex(k), e) for k, e in cap["lessor"]])
+    h.member_round(2)
+    if h.rns[2].plane_capture(cap_rows) != caps:
+        raise AssertionError("a restored plane image captures differently")
+    rounds = h.rounds - base
+    rn1 = h.rns[1]
+    plane_bytes = sum(x.nbytes for x in rn1.plane)
+    buffer_bytes = plane_bytes + sum(
+        x.nbytes for x in (*rn1._plane_in, *rn1._plane_out,
+                           *[y for chunk in rn1._plane_chunks
+                             for part in chunk for y in part]))
+    allst = {k: [v for st in stats.values() for v in st[k]]
+             for k in ("wall_ms", "host_ms", "device_ms", "chunks")}
+    committed = sum(map(len, h.proposed))
+    result = dict(
+        groups=groups, members=len(MEMBERS), config="bench + apply plane "
+        "(C=256, WS=8, A=8)", setup_s=setup_s, load_rounds=load_rounds,
+        drain_rounds=drain, rounds=rounds, entries_committed=committed,
+        entries_committed_per_s=committed / wall_s,
+        wall_ms_per_hosted_round=statistics.median(h.round_ms[-rounds:]),
+        plane_dispatch_wall_ms_median=statistics.median(allst["wall_ms"]),
+        plane_dispatch_wall_ms_max=max(allst["wall_ms"]),
+        plane_dispatch_host_ms_median=statistics.median(allst["host_ms"]),
+        plane_device_ms_per_chunk=(statistics.median(allst["device_ms"])
+                                   if allst["device_ms"] else "not measured"),
+        chunks_per_member_round=statistics.mean(allst["chunks"]),
+        chunks_max=max(allst["chunks"]),
+        plane_stats={mid: rn.plane_stats for mid, rn in h.rns.items()},
+        oracle_rows=len(rows), watch_events_checked=events,
+        capture_rows=len(cap_rows), capture_ms=capture_ms,
+        plane_state_bytes=plane_bytes, plane_buffer_bytes=buffer_bytes,
+        captures={mid: rn.captures for mid, rn in h.rns.items()},
+        launches=launches)
+    if cuda and set(result["captures"].values()) != {2}:
+        raise AssertionError(f"captures per member: {result['captures']}")
+    return {"result": result, "launches": launches, "forms": forms,
+            "rounds": rounds * len(MEMBERS)}
+
+
+def run_plane(dev) -> dict:
+    """The apply plane at full width: the dispatch alone at G = 65,536
+    rows, then three plane-on hosted members. Returns the hosted run's
+    kernel launches."""
+    alone = plane_dispatch_check(dev, MAIN_GROUPS)
+    hosted = run_plane_hosted(dev)
+    log("plane", dispatch=alone, hosted=hosted["result"],
+        card=smi("name,power.limit") if dev.type == "cuda" else str(dev))
+    return {k: hosted[k] for k in ("launches", "forms", "rounds")}
+
+
+# -- phase: plane_parity (plane-on rawnodes on CUDA vs the CPU) -----------------
+
+
+def kv_payload(rng) -> bytes:
+    """One seeded KV payload of hosted_schedule's plane runs."""
+    from etcd_tpu_torch.batched.applyplane import delete_payload, put_payload
+
+    key = b"k%d" % rng.randint(0, 12)
+    u = rng.rand()
+    if u < 0.2:
+        return delete_payload(key)
+    return put_payload(key, rng.bytes(8), int(rng.randint(1, 8))
+                       if u > 0.75 else 0)
+
+
+def plane_schedule(rnd: int, rns: dict, cfg) -> None:
+    """hosted_schedule with KV payloads, watch arms on every member at
+    rounds 2 and 21, and at round 25 member 1's images of rows 0-7
+    restored into member 3."""
+    from etcd_tpu_torch.batched.applyplane import fnv1a32
+
+    hosted_schedule(rnd, rns, cfg, payload=kv_payload)
+    if rnd in (2, 21):
+        for rn in rns.values():
+            for row in range(0, cfg.num_groups, 3):
+                rn.watch_set(row, row % cfg.apply_watch_slots,
+                             fnv1a32(b"k%d" % (row % 4 + rnd % 2)))
+    if rnd == 25:
+        for row, cap in enumerate(rns[1].plane_capture(range(8))):
+            rns[3].plane_restore_row(
+                row, cap["kv_key"], cap["kv_rev"], cap["kv_val"],
+                cap["kv_lease"], cap["rev"], cap["tick"], cap["overflow"],
+                cap["applied"],
+                lessor=[(bytes.fromhex(k), e) for k, e in cap["lessor"]])
+
+
+def assert_planes_equal(a, b, context: str) -> None:
+    """assert_members_equal, and every plane tensor, plane_stats, the
+    plane mirrors, the lessor, the drained events and a capture of every
+    row equal."""
+    assert_members_equal(a, b, context)
+    for f, x, y in zip(a.plane._fields, a.plane, b.plane):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{context}: plane.{f} differs")
+    for f in ("m_plane_tick", "m_plane_applied"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{context}: {f} differs")
+    if (a.plane_stats != b.plane_stats
+            or list(a.plane_lessor.items()) != list(b.plane_lessor.items())
+            or a.drain_plane_events() != b.drain_plane_events()
+            or a.plane_capture(range(a.n)) != b.plane_capture(range(b.n))):
+        raise AssertionError(f"{context}: plane stats, lessor, events or "
+                             "captures differ")
+
+
+def plane_beside_capture(cfg, dev, rounds: int = 12) -> dict:
+    """Member 1 of a plane-on set that has captured both its graphs runs
+    rounds (each with a plane dispatch) and plane_captures in a thread,
+    while the main thread builds a fresh plane-on set and runs its first
+    rounds, whose captures meet the thread's device work. No error, and
+    two captures per fresh member."""
+    old = hosted_members(cfg, dev)
+    for rnd in range(4):
+        plane_schedule(rnd, old, cfg)
+        for mid in MEMBERS:
+            rd = old[mid].advance_round()
+            route(old, rd)
+            old[mid].advance()
+    stop, errors, loops = threading.Event(), [], [0]
+
+    def busy():
+        rn = old[1]
+        try:
+            while not stop.is_set():
+                rn.tick()
+                rn.advance_round()
+                rn.advance()
+                rn.plane_capture(range(0, rn.n, 7))
+                loops[0] += 1
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        fresh = hosted_members(cfg, dev)
+        for rnd in range(rounds):
+            plane_schedule(rnd, fresh, cfg)
+            for mid in MEMBERS:
+                rd = fresh[mid].advance_round()
+                route(fresh, rd)
+                fresh[mid].advance()
+    finally:
+        stop.set()
+        t.join(120)
+    if errors:
+        raise errors[0]
+    caps = {mid: rn.captures for mid, rn in fresh.items()}
+    if dev.type == "cuda" and set(caps.values()) != {2}:
+        raise AssertionError(f"captures beside the thread: {caps}")
+    return {"thread_rounds": loops[0], "fresh_captures": caps}
+
+
+def run_plane_parity(dev, plain_dev=torch.device("cpu")) -> None:
+    """Plane-on members on `dev` (on CUDA: a graph replay per round and
+    per plane dispatch) against plane-on members on the CPU, G=256, in
+    the bench and prevote_cq configs; then a dispatch and captures in a
+    thread beside another member set's first captures."""
+    for label, base in parity_configs(256).items():
+        cfg = plane_config(256, base)
+        sets = [hosted_members(cfg, dev), hosted_members(cfg, plain_dev)]
+        res = hosted_lockstep(cfg, sets, 40, label, schedule=plane_schedule,
+                              check=assert_planes_equal)
+        stats = sets[0][1].plane_stats
+        if dev.type == "cuda" and set(res["captures"].values()) != {2}:
+            raise AssertionError(f"plane_parity {label}: {res['captures']}")
+        if not (stats["puts"] and stats["dels"] and stats["expired"]
+                and stats["watch_events"]):
+            raise AssertionError(f"plane_parity {label}: idle plane {stats}")
+        log("plane_parity", config=label, groups=256, equal=True, **res,
+            plane_stats_member_1=stats)
+    cfg = plane_config(256, parity_configs(256)["prevote_cq"])
+    log("plane_parity", case="dispatch and capture beside a capture",
+        **plane_beside_capture(cfg, dev))
 
 
 # -- phase: node (three BatchedNodes at raftexample's default width) ------------
@@ -1612,6 +2197,8 @@ def main() -> int:
     timed("parity", run_parity, dev)
     paths["hosted"] = timed("hosted", run_hosted, dev)
     timed("hosted_parity", run_hosted_parity, dev)
+    paths["plane"] = timed("plane", run_plane, dev)
+    timed("plane_parity", run_plane_parity, dev)
     paths["node"] = timed("node", run_node, dev)
     timed("node_parity", run_node_parity, dev)
     paths["raftexample"] = {"launches": timed("raftexample",

@@ -8,9 +8,14 @@ repository as the reference. The port is self-contained: it imports
   - ``etcd_tpu_torch.batched`` — SoA state, the vectorized round with
     its telemetry and fleet planes, the closed-loop engine (a CUDA
     graph of one round on the GPU), the hosted BatchedRawNode and its
-    message codec, and the quorum/ring-term Hopper kernels.
+    message codec, the device apply plane, the telemetry hub, the
+    membership store, and the quorum/ring-term Hopper kernels.
   - ``etcd_tpu_torch.raft``    — the raft wire types the rawnode uses.
-  - ``etcd_tpu_torch.obs``     — the fleet summary frame's layout.
+  - ``etcd_tpu_torch.obs``     — the fleet hub and its frame layout, the
+    proposal tracer, its chrome-trace export and cross-member merge.
+  - ``etcd_tpu_torch.pkg``, ``storage``, ``native``, ``transport`` — the
+    metrics registry, failpoints, shared errors, the WAL and its native
+    record log, snapshots, and the wire codec.
   - ``etcd_tpu_torch.tools``   — the bench setup, the bench twin and the
     kernel timers.
 """

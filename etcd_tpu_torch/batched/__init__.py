@@ -15,7 +15,11 @@ lockstep, one row per replica instance:
                deliver → tick → control → propose → emit), its
                telemetry and fleet frames, and the router (a transpose
                over the dense layout).
-- ``telemetry``: the telemetry frame's counter and invariant layout.
+- ``telemetry``: the telemetry frame's counter and invariant layout, the
+               host hub and the metric families.
+- ``applyplane``: the device apply plane (hash-slot MVCC, watches and
+               lease expiry over a row axis) and its host oracle.
+- ``membership``: the per-group membership store (GroupConfStore).
 - ``engine``:  the closed-loop MultiRaftEngine (on CUDA, a replayed
                CUDA graph of one round).
 - ``rawnode``: BatchedRawNode, the hosted entry point (stage → round →

@@ -2,7 +2,8 @@
 
 The counterpart of checkpoint weights for this system: a BatchedState
 (and an inbox/outbox of MsgSlots) is the whole of what one round hands
-the next. A state saved by another implementation of the same round —
+the next, and a PlaneState the whole of what one apply-plane dispatch
+hands the next. A state saved by another implementation of the same round —
 as numpy arrays, field by field — loads here and steps on, and a state
 from here reads back the same way, so two implementations can start
 from one state and be compared field by field.
@@ -15,6 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .applyplane import PlaneState
 from .state import BatchedState, resolve_device
 from .step import MsgSlots
 
@@ -51,3 +53,12 @@ def state_to_numpy(st: BatchedState) -> Dict[str, np.ndarray]:
 
 def msgs_to_numpy(m: MsgSlots) -> Dict[str, np.ndarray]:
     return _dump(m)
+
+
+def plane_from_numpy(fields: Dict[str, np.ndarray], device=None) -> PlaneState:
+    """An apply-plane PlaneState from one numpy array per field."""
+    return _load(PlaneState, fields, device)
+
+
+def plane_to_numpy(plane: PlaneState) -> Dict[str, np.ndarray]:
+    return _dump(plane)

@@ -34,6 +34,19 @@ after one eager round (graph.RoundGraphs, shared with the engine); on
 the CPU it runs eagerly. No result the host keeps past a round is a
 view of a buffer the next round rewrites.
 
+The apply plane (``cfg.apply_plane``, applyplane.py) follows the same
+rules: the rawnode owns the plane's state, its ``[n, A]`` record inputs
+with the tick advance, and its frame. After a round's extraction, each
+chunk of at most A committed records per row is copied from pinned
+memory into the input buffers and folded by one replay of the plane's
+own graph; each chunk's frame goes out by an asynchronous copy into a
+pinned host buffer of its own, and the round waits once for all of
+them. The dispatch, the staged plane edits and ``plane_capture`` all
+hold ``graph.device_work()``, so a capture from another thread never
+meets another member's capture (the reference's plane lock, which kept
+a capture away from a donated carry, has no counterpart: the buffers
+are owned).
+
 Persistence contract per round (must_sync mirrors raft MustSync,
 ref: raft/node.go:588-595): the caller drains ``BatchedReady`` to its
 WAL and fsyncs BEFORE handing messages to the transport, then applies
@@ -54,6 +67,15 @@ import numpy as np
 import torch
 
 from ..raft.types import Message, MessageType, Snapshot, SnapshotMetadata
+from .applyplane import (
+    KV_LANES,
+    OP_PUT,
+    dispatch as plane_dispatch,
+    fnv1a32,
+    gather_rows,
+    init_plane,
+    parse_payload,
+)
 from .graph import RoundGraphs, device_work, storages, write_back
 from .msgblock import (
     MsgBlock,
@@ -104,7 +126,6 @@ _LANE = {
 
 # The ROADMAP items that port what this module refuses.
 _NOT_PORTED = {
-    "apply_plane": "ROADMAP A13 (the device apply plane)",
     "mesh": "ROADMAP A12 (the hosting stack: its mesh branch becomes a "
             "group-axis split over CUDA devices)",
 }
@@ -240,8 +261,6 @@ class BatchedRawNode:
         # deliver_shape="auto" resolves here, so the hosted path and the
         # closed-loop engine run the same round for one logical config.
         self.cfg = cfg = cfg.validate().resolved()
-        if cfg.apply_plane:
-            _refuse("BatchedConfig.apply_plane", "apply_plane")
         if mesh is not None:
             _refuse("BatchedRawNode(mesh=...)", "mesh")
         self.device = dev = resolve_device(device)
@@ -384,11 +403,58 @@ class BatchedRawNode:
         # other outputs, handed to an attached hub (ingest_round(vec)).
         self.fleet_hub = None
         self.last_fleet: Optional[np.ndarray] = None
-        # Proposal-lifecycle tracer (any object with etcd_tpu.obs.Tracer's
-        # methods), purely host-side.
+        # Proposal-lifecycle tracer (obs.Tracer), purely host-side.
         self.tracer = None
-        # The device apply plane is not ported (refused above).
+        # Device-resident apply plane (cfg.apply_plane, applyplane.py):
+        # dispatched right after committed-range extraction, where the
+        # payload bytes are in hand. The round is the same with the
+        # plane on or off.
         self.plane = None
+        if cfg.apply_plane:
+            self._build_plane(cfg, dev)
+
+    def _build_plane(self, cfg, dev) -> None:
+        """The apply plane's owned buffers and host state."""
+        n, a = self.n, cfg.apply_records
+        self.plane = init_plane(cfg, n, device=dev)
+        # The record inputs (ops, keys, vals, ttls [n, A]; tick_add [n]),
+        # the frame (PlaneFrame order: four [n, A] event lanes, five [n]
+        # counts, the [n] overflow flag), and per chunk of one round a
+        # host staging twin of the inputs and a host copy of the frame
+        # (pinned on CUDA).
+        self._plane_in = tuple(
+            torch.zeros((n, a) if k < 4 else (n,), dtype=I32, device=dev)
+            for k in range(5))
+        self._plane_out = tuple(
+            torch.zeros((n, a) if k < 4 else (n,),
+                        dtype=torch.bool if k == 9 else I32, device=dev)
+            for k in range(10))
+        self._plane_chunks: List[Tuple[tuple, tuple]] = []
+        # Watch events drained by the hosting layer (row, op, key_hash,
+        # rev, wmask); bounded — a stalled drain must not grow the heap.
+        self.plane_events: deque = deque(maxlen=8192)
+        # Host-accumulated plane stats (round thread writes, any thread
+        # reads — GIL-atomic scalar swaps).
+        self.plane_stats: Dict[str, int] = {
+            "dispatches": 0, "puts": 0, "dels": 0, "expired": 0,
+            "watch_events": 0, "slots_hw": 0, "overflow_rows": 0,
+            "active_leases": 0,
+        }
+        # Staged plane edits from foreign threads, applied in place at
+        # the head of the next round (the staged-edit idiom of
+        # _pending_conf): watch-slot arms and restored row images.
+        self._pending_watch: Dict[Tuple[int, int], int] = {}
+        self._pending_plane_rows: Dict[int, Tuple] = {}
+        # Host mirrors of the plane clock and of the highest entry index
+        # folded per row. The applied watermark makes a repeated dispatch
+        # idempotent: a plane image restored AHEAD of the host snapshot
+        # index must not fold again the WAL tail the host re-delivers.
+        self.m_plane_tick = np.zeros(n, np.int64)
+        self.m_plane_applied = np.zeros(n, np.int64)
+        # Exact host lessor mirror: (row, key bytes) -> absolute
+        # plane-tick expiry, replayed from the same payload stream at the
+        # dispatch's tick arithmetic (the device stores hashes only).
+        self.plane_lessor: Dict[Tuple[int, bytes], int] = {}
 
     # -- device helpers -------------------------------------------------------
 
@@ -412,7 +478,8 @@ class BatchedRawNode:
 
     @property
     def captures(self) -> int:
-        """CUDA graphs captured by this rawnode (one, on CUDA)."""
+        """CUDA graphs captured by this rawnode: on CUDA one for the
+        round, and one for the apply plane's dispatch when it is on."""
         return self._graphs.captures
 
     @property
@@ -559,22 +626,74 @@ class BatchedRawNode:
         with self._lock:
             self._pending_fence[row] = bool(on)
 
-    # The apply plane's staging and capture (not ported).
-
     def watch_set(self, row: int, wslot: int, key_hash: int) -> None:
-        _refuse("BatchedRawNode.watch_set", "apply_plane")
+        """Stage an exact-key watch into plane watch slot ``wslot`` of
+        ``row`` (0 disarms). STAGED like set_fence: the device edit
+        lands at the head of the next round."""
+        assert self.plane is not None, "apply plane is off"
+        assert 0 <= wslot < self.cfg.apply_watch_slots
+        with self._lock:
+            self._pending_watch[(int(row), int(wslot))] = int(key_hash)
 
-    def plane_restore_row(self, row: int, *args, **kwargs) -> None:
-        _refuse("BatchedRawNode.plane_restore_row", "apply_plane")
+    def plane_restore_row(self, row: int, kv_key, kv_rev, kv_val,
+                          kv_lease, rev: int, tick: int,
+                          overflow: bool, applied: int = 0,
+                          lessor=()) -> None:
+        """Stage a full plane-row image (snapshot install / boot
+        rebuild): fixed-width [C] i32 vectors + scalars, applied at the
+        head of the next round, before its dispatch. ``applied`` is the
+        highest entry index the image covers (dispatch skips at-or-
+        below it); ``lessor`` is the row's (key bytes, expiry tick)
+        mirror entries."""
+        assert self.plane is not None, "apply plane is off"
+        c = self.cfg.apply_capacity
+        img = tuple(np.asarray(x, np.int32).reshape(c)
+                    for x in (kv_key, kv_rev, kv_val, kv_lease))
+        with self._lock:
+            self._pending_plane_rows[int(row)] = img + (
+                int(rev), int(tick), bool(overflow), int(applied),
+                [(bytes(k), int(e)) for k, e in lessor])
 
-    def drain_plane_events(self):
-        _refuse("BatchedRawNode.drain_plane_events", "apply_plane")
+    def drain_plane_events(self) -> List[Tuple[int, int, int, int, int]]:
+        """Pop every pending (row, op, key_hash, rev, wmask) watch
+        event (round thread appends; any thread drains — deque ops are
+        GIL-atomic)."""
+        if self.plane is None:
+            return []
+        evs = []
+        try:
+            while True:
+                evs.append(self.plane_events.popleft())
+        except IndexError:
+            pass
+        return evs
 
-    def plane_capture(self, rows):
-        _refuse("BatchedRawNode.plane_capture", "apply_plane")
-
-    def _plane_dispatch(self, committed, ticks) -> None:
-        _refuse("BatchedRawNode._plane_dispatch", "apply_plane")
+    def plane_capture(self, rows) -> List[Dict[str, object]]:
+        """Snapshot-capture gather: one device gather per plane buffer
+        for the whole batch of rows, read back under the device lock
+        (so any thread may call it, beside other members' captures).
+        Returns one JSON-ready dict per requested row."""
+        assert self.plane is not None, "apply plane is off"
+        rows = np.asarray(rows, np.int32).reshape(-1)
+        with self._on_device(), device_work():
+            parts = [x.cpu().numpy() for x in gather_rows(self.plane, rows)]
+            applied = self.m_plane_applied[rows].tolist()
+            tick = self.m_plane_tick[rows].tolist()
+            less = {int(r): [] for r in rows}
+            for (r2, kb), exp in list(self.plane_lessor.items()):
+                if r2 in less:
+                    less[r2].append((kb, exp))
+        kk, kr, kv, kl, rv, _tk, ov = parts
+        out = []
+        for j, r in enumerate(rows.tolist()):
+            out.append({
+                "kv_key": kk[j].tolist(), "kv_rev": kr[j].tolist(),
+                "kv_val": kv[j].tolist(), "kv_lease": kl[j].tolist(),
+                "rev": int(rv[j]), "tick": int(tick[j]),
+                "overflow": bool(ov[j]), "applied": int(applied[j]),
+                "lessor": [[kb.hex(), int(e)] for kb, e in less[r]],
+            })
+        return out
 
     def pending_proposals(self, row: int) -> int:
         with self._lock:
@@ -652,6 +771,9 @@ class BatchedRawNode:
                 self._pending or self._blocks or self._poked
                 or self._pending_conf or self._pending_compact
                 or self._pending_fence
+                or (self.plane is not None
+                    and (self._pending_watch
+                         or self._pending_plane_rows))
                 or self._ticks.any()
                 or self._campaign.any()
                 or self._transfer.any()
@@ -691,12 +813,14 @@ class BatchedRawNode:
                    self._owned)
 
     def _run_device(self, pend_conf, pend_fence, compact_rows,
-                    poke_rows) -> None:
+                    poke_rows, pend_watch=None, pend_plane=None) -> None:
         """The round's device work, enqueued with no host sync: the
-        staged edits in place on the state buffers, the staged inputs
-        into their buffers, the round (a graph replay on CUDA), and the
-        outputs the host reads into host buffers."""
+        staged edits in place on the state and plane buffers, the staged
+        inputs into their buffers, the round (a graph replay on CUDA),
+        and the outputs the host reads into host buffers."""
         st = self.state
+        if pend_watch or pend_plane:
+            self._plane_edits(pend_watch, pend_plane)
         if pend_conf:
             rows2 = np.fromiter(pend_conf, np.int64, len(pend_conf))
             idx = self._to_device(rows2)
@@ -733,6 +857,42 @@ class BatchedRawNode:
                 host.copy_(getattr(st, f), non_blocking=True)
         else:
             self._device_round()
+
+    def _plane_edits(self, pend_watch, pend_plane) -> None:
+        """The staged plane edits, in place: watch arms, then restored
+        row images with their host mirrors (clock, applied watermark,
+        lessor entries). Runs under the device lock, at the head of the
+        round."""
+        pl = self.plane
+        if pend_watch:
+            keys = list(pend_watch)
+            wr, wc = (self._to_device(np.asarray([k[i] for k in keys],
+                                                 np.int64)) for i in (0, 1))
+            pl.watch_key.index_put_((wr, wc), self._to_device(
+                np.asarray([pend_watch[k] for k in keys], np.int32)))
+        if pend_plane:
+            rows2 = np.fromiter(pend_plane, np.int64, len(pend_plane))
+            imgs = [pend_plane[int(r2)] for r2 in rows2]
+            ridx = self._to_device(rows2)
+            for i, f in enumerate(KV_LANES):
+                getattr(pl, f).index_copy_(0, ridx, self._to_device(
+                    np.stack([im[i] for im in imgs])))
+            for i, buf, dt in ((4, pl.rev, np.int32), (5, pl.tick, np.int32),
+                               (6, pl.overflow, bool)):
+                buf.index_copy_(0, ridx, self._to_device(
+                    np.fromiter((im[i] for im in imgs), dt, len(imgs))))
+            for r2 in rows2.tolist():
+                im = pend_plane[r2]
+                self.m_plane_tick[r2] = im[5]
+                self.m_plane_applied[r2] = im[7]
+                # Lessor swap: drop every entry for the row, then install
+                # the image's (the stale keys listed first — no
+                # structural iteration over a dict readers get() from).
+                stale = [k for k in self.plane_lessor if k[0] == r2]
+                for k in stale:
+                    del self.plane_lessor[k]
+                for kb, exp in im[8]:
+                    self.plane_lessor[(r2, kb)] = exp
 
     def _wait(self) -> None:
         """The round's one host sync: every copy and the round itself
@@ -780,6 +940,12 @@ class BatchedRawNode:
             self._pending_compact = {}
             pend_fence = self._pending_fence
             self._pending_fence = {}
+            pend_watch = pend_plane = None
+            if self.plane is not None:
+                pend_watch = self._pending_watch
+                self._pending_watch = {}
+                pend_plane = self._pending_plane_rows
+                self._pending_plane_rows = {}
             props_n = np.fromiter(
                 (min(len(q), cfg.max_props_per_round) for q in self._props),
                 np.int32, count=self.n,
@@ -812,7 +978,8 @@ class BatchedRawNode:
             self.m_snap[row2] = max(self.m_snap[row2], idx)
         tr_dispatch = time.monotonic_ns() if tracer is not None else 0
         with self._on_device(), device_work():
-            self._run_device(pend_conf, pend_fence, compact_rows, poke_rows)
+            self._run_device(pend_conf, pend_fence, compact_rows, poke_rows,
+                             pend_watch, pend_plane)
             self._wait()
 
         (term, vote, commit, last, role, lead, snap_i, snap_t, ring,
@@ -1062,6 +1229,14 @@ class BatchedRawNode:
                 (int(row), int(rd_seq[row]), int(rd_idx[row])))
             self._read_seen[row] = int(rd_seq[row])
 
+        # Apply-plane dispatch: fold this round's committed entries
+        # (payload bytes in hand from the extraction above) and staged
+        # ticks into the plane. After the lock: it reads only local
+        # extraction results and the plane, whose one writer is this
+        # thread.
+        if self.plane is not None and (committed or ticks.any()):
+            self._plane_dispatch(committed, ticks)
+
         self._round = (term, vote, commit, last, role, lead,
                        snap_i.astype(np.int64), ring64,
                        lease_tk.astype(np.int64))
@@ -1111,6 +1286,122 @@ class BatchedRawNode:
             self._round = None
 
     # -- internals -------------------------------------------------------------
+
+    def _plane_body(self) -> None:
+        """One dispatch over the plane's buffers, its frame written into
+        the frame buffers. The body of the plane's CUDA graph."""
+        frame = plane_dispatch(self.plane, *self._plane_in)
+        for buf, x in zip(self._plane_out, frame, strict=True):
+            buf.copy_(x)
+
+    def _plane_chunk_buffers(self, ci: int) -> Tuple[tuple, tuple]:
+        """Chunk ci's host staging twins of the inputs and host copies
+        of the frame, made on first use and kept."""
+        while len(self._plane_chunks) <= ci:
+            self._plane_chunks.append(tuple(
+                tuple(self._host_like(x) for x in bufs)
+                for bufs in (self._plane_in, self._plane_out)))
+        return self._plane_chunks[ci]
+
+    def _plane_dispatch(self, committed, ticks: np.ndarray) -> None:
+        """Fold one round's committed KV payloads + staged ticks into
+        the device apply plane (round thread only). Rows committing
+        more than A = cfg.apply_records entries dispatch again with the
+        next record chunk; the tick advance rides chunk 0 only. The
+        payloads are parsed and hashed first, on the host; then, under
+        the device lock, the mirrors move and the chunks are enqueued,
+        each chunk's frame copied to the host, with one wait for all."""
+        cfg = self.cfg
+        a, n = cfg.apply_records, self.n
+        new_tick = self.m_plane_tick + ticks.astype(np.int64)
+        recs: List[Tuple[int, int, int, int, int, int]] = []
+        lessor_ops: List[Tuple[Tuple[int, bytes], Optional[int]]] = []
+        tops: List[Tuple[int, int]] = []
+        longest = 0
+        for row, items in committed:
+            floor = int(self.m_plane_applied[row])
+            top = floor
+            pos = 0
+            for i, _t, d, et in items:
+                if i <= floor:
+                    # Already folded (a restored plane image can lead
+                    # the host apply watermark; the boot replay and
+                    # post-install tail re-deliver that span).
+                    continue
+                top = max(top, int(i))
+                if et != 0 or not d:
+                    # Conf entries and unknown payloads (arena holes)
+                    # skip the KV tier — exactly the host loop's rule.
+                    continue
+                p = parse_payload(d)
+                if p is None:
+                    continue
+                op, k, v, ttl = p
+                recs.append((row, pos, op, fnv1a32(k),
+                             fnv1a32(v) if op == OP_PUT else 0,
+                             ttl if op == OP_PUT else 0))
+                pos += 1
+                # Lessor mirror: same record, same tick arithmetic as
+                # the dispatch (chunk 0 advances the clock, so every
+                # chunk applies at new_tick).
+                lessor_ops.append((
+                    (row, k), int(new_tick[row]) + ttl
+                    if op == OP_PUT and ttl > 0 else None))
+            if top > floor:
+                tops.append((row, top))
+            longest = max(longest, pos)
+        nchunks = max(1, -(-longest // a))
+        rec = np.asarray(recs, np.int64).reshape(-1, 6)
+        chunk_of = rec[:, 1] // a
+        with self._on_device(), device_work():
+            for row, top in tops:
+                self.m_plane_applied[row] = top
+            lessor = self.plane_lessor
+            for key, exp in lessor_ops:
+                if exp is None:
+                    lessor.pop(key, None)
+                else:
+                    lessor[key] = exp
+            self.m_plane_tick = new_tick
+            for ci in range(nchunks):
+                stage, host_frame = self._plane_chunk_buffers(ci)
+                for x in stage:
+                    x.zero_()
+                sel = rec[chunk_of == ci]
+                rows_c, cols_c = sel[:, 0], sel[:, 1] % a
+                for x, col in zip(stage[:4], sel[:, 2:].T):
+                    x.numpy()[rows_c, cols_c] = col
+                if ci == 0:
+                    stage[4].numpy()[:] = ticks
+                for buf, host in zip(self._plane_in, stage):
+                    buf.copy_(host, non_blocking=True)
+                if self._cuda:
+                    self._graphs.run("plane", self._plane_body)
+                else:
+                    self._plane_body()
+                for host, buf in zip(host_frame, self._plane_out):
+                    host.copy_(buf, non_blocking=True)
+            self._wait()
+        stats = self.plane_stats
+        for ci in range(nchunks):
+            (ev_op, ev_key, ev_rev, ev_wmask, puts, dels, expired,
+             slots_used, leases, overflow) = (
+                x.numpy() for x in self._plane_chunks[ci][1])
+            stats["dispatches"] += 1
+            stats["puts"] += int(puts.sum())
+            stats["dels"] += int(dels.sum())
+            stats["expired"] += int(expired.sum())
+            stats["slots_hw"] = max(stats["slots_hw"], int(slots_used.max()))
+            stats["overflow_rows"] = int(overflow.sum())
+            stats["active_leases"] = int(leases.sum())
+            hit = (ev_op != 0) & (ev_wmask != 0)
+            rws, lanes = np.nonzero(hit)
+            if len(rws):
+                for r2, l2 in zip(rws.tolist(), lanes.tolist()):
+                    self.plane_events.append((
+                        int(r2), int(ev_op[r2, l2]), int(ev_key[r2, l2]),
+                        int(ev_rev[r2, l2]), int(ev_wmask[r2, l2])))
+                stats["watch_events"] += len(rws)
 
     # Residual block records are bounded: raft tolerates message loss,
     # so once the residual queue exceeds this many records per inbox

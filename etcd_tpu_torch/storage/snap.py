@@ -11,9 +11,8 @@ state ids + opaque application data. ``load()`` walks snapshots newest
 first and skips corrupt/partial files, renaming them ``.broken`` the
 way snapshotter.go:204-243 does.
 
-Ports ``etcd_tpu/storage/snap.py`` without its storage fault seam (which
-waits for the hosting layer's port); the file format is etcd_tpu's byte
-for byte, so each package loads the other's snapshots.
+Ports ``etcd_tpu/storage/snap.py`` whole; the port keeps its own copy and
+tests/test_torch_hubs.py pins it equal.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List
+from typing import List, Optional
 
 from ..raft.types import ConfState, Snapshot, SnapshotMetadata
 
@@ -75,9 +74,25 @@ def _decode(payload: bytes) -> Snapshot:
 
 
 class Snapshotter:
-    def __init__(self, dirpath: str) -> None:
+    """``fault_hook(op, nbytes)`` is the storage fault plane's seam
+    (batched/faults.DiskFaultPlan — same contract as native Walog's
+    hook): called BEFORE each file-affecting step with op in
+    {"snap_write", "snap_fsync", "snap_rename"}, so a raise guarantees
+    that step never started (the write-atomicity save_snap's tmp+rename
+    already provides makes any abort loss-free: the previous snapshot
+    file is untouched). The hook may sleep (latency injection) or
+    raise: ENOSPC/write errors fire on snap_write/snap_rename, fsync
+    errors on snap_fsync — exercised directly by
+    tests/batched/test_diskfaults.py's Snapshotter seam tests."""
+
+    def __init__(self, dirpath: str, *, fault_hook=None) -> None:
         self.dir = dirpath
+        self.fault_hook = fault_hook
         os.makedirs(dirpath, exist_ok=True)
+
+    def _hook(self, op: str, nbytes: int = 0) -> None:
+        if self.fault_hook is not None:
+            self.fault_hook(op, nbytes)
 
     def save_snap(self, snapshot: Snapshot) -> None:
         """ref: snapshotter.go:82-139 SaveSnap/save."""
@@ -91,10 +106,13 @@ class Snapshotter:
         payload = _encode(snapshot)
         blob = struct.pack("<II", zlib.crc32(payload), len(payload)) + payload
         tmp = os.path.join(self.dir, fname + ".tmp")
+        self._hook("snap_write", len(blob))
         with open(tmp, "wb") as f:
             f.write(blob)
             f.flush()
+            self._hook("snap_fsync")
             os.fsync(f.fileno())
+        self._hook("snap_rename")
         os.replace(tmp, os.path.join(self.dir, fname))
         # Crash-durability: fsync the parent directory after the
         # rename, or a crash can lose the DIRECTORY ENTRY of a fully
@@ -125,6 +143,14 @@ class Snapshotter:
         """Newest valid snapshot (ref: snapshotter.go:141-172 Load)."""
         return self.load_matching(lambda s: True)
 
+    def load_newest_available(self, wal_snaps: List[tuple]) -> Snapshot:
+        """Newest snapshot also recorded in the WAL's snapshot markers
+        (ref: snapshotter.go:160-172): wal_snaps is [(index, term), ...]."""
+        want = {(i, t) for i, t in wal_snaps}
+        return self.load_matching(
+            lambda s: (s.metadata.index, s.metadata.term) in want
+        )
+
     def load_matching(self, matchfn) -> Snapshot:
         for name in self.snap_names():
             path = os.path.join(self.dir, name)
@@ -151,7 +177,8 @@ class Snapshotter:
 
     def release_snap_dbs(self, index: int) -> None:
         """Delete snapshot files older than index (purge path,
-        ref: snapshotter.go ReleaseSnapDBs). The directory is fsync'd
+        ref: snapshotter.go ReleaseSnapDBs). The unlink runs through
+        the fault seam (``snap_unlink``), and the directory is fsync'd
         after pruning — the rename-fsync above makes CREATION durable,
         but an unlink lives in the same directory pages: without this,
         a crash can resurrect a pruned file and a later replay may pick
@@ -163,7 +190,24 @@ class Snapshotter:
             except ValueError:
                 continue
             if idx < index:
+                self._hook("snap_unlink")
                 os.remove(os.path.join(self.dir, name))
                 removed += 1
         if removed:
+            self._hook("snap_fsync")
             self._fsync_dir()
+
+    def retain(self, keep: int) -> int:
+        """Keep the ``keep`` newest snapshot files, unlink the rest
+        (fault seam + dir fsync like release_snap_dbs). Returns the
+        number pruned. keep < 1 is clamped to 1 — retention must never
+        delete the only recoverable snapshot."""
+        keep = max(1, int(keep))
+        victims = self.snap_names()[keep:]
+        for name in victims:
+            self._hook("snap_unlink")
+            os.remove(os.path.join(self.dir, name))
+        if victims:
+            self._hook("snap_fsync")
+            self._fsync_dir()
+        return len(victims)

@@ -543,6 +543,41 @@ def test_members_capture_side_by_side_in_threads(dev):
     assert {n.rn.captures for n in nodes.values()} == {1}
 
 
+def test_plane_graphed_dispatch_equals_eager(dev):
+    """The apply plane's dispatch replayed as a CUDA graph over owned
+    buffers against the same dispatch run eagerly on the card, 4,096
+    rows, 40 seeded dispatches: every frame and the final planes equal,
+    and the sampled, armed-watch and overflowing rows equal PlaneOracle."""
+    res = chip_smoke.plane_dispatch_check(dev, 4096, sample=64)
+    assert res["graphed_eq_eager"] and res["overflow_rows"] >= 8
+
+
+@pytest.mark.parametrize("config", ["bench", "prevote_cq"])
+def test_plane_rawnodes_on_cuda_equal_cpu(dev, config):
+    """Plane-on hosted members on the card against plane-on members on
+    the CPU, G=64, under chip_smoke's plane schedule (KV payloads, watch
+    arms, a restored row image): Readys, state, plane tensors, stats,
+    events, captures, mirrors and lessor equal every member round; two
+    captures (round and plane) per graphed member."""
+    cfg = chip_smoke.plane_config(64, chip_smoke.parity_configs(64)[config])
+    res = chip_smoke.hosted_lockstep(
+        cfg, [chip_smoke.hosted_members(cfg, dev),
+              chip_smoke.hosted_members(cfg, torch.device("cpu"))], 36,
+        config, schedule=chip_smoke.plane_schedule,
+        check=chip_smoke.assert_planes_equal)
+    assert set(res["captures"].values()) == {2}
+
+
+def test_plane_dispatch_beside_a_capture_in_a_thread(dev):
+    """A member's rounds (each with a plane dispatch) and plane_captures
+    in a thread while another member set captures its graphs: no capture
+    error (the dispatch and the capture hold graph.device_work)."""
+    cfg = chip_smoke.plane_config(
+        64, chip_smoke.parity_configs(64)["prevote_cq"])
+    res = chip_smoke.plane_beside_capture(cfg, dev)
+    assert res["thread_rounds"] > 0
+
+
 def test_raftexample_members_on_the_card(dev):
     """raftexample's three members on the card, each in its own threads,
     with a WAL and snapshots on disk and one member stopped and restarted

@@ -140,7 +140,9 @@ def test_bench_reads_the_jax_bench_variables(monkeypatch):
 def test_port_imports_no_jax():
     """Importing every module of the port (the rawnode, the node, the
     message codec, the raft host pieces, raftexample, the WAL and its
-    native library among them), building and loading the walog library,
+    native library, the apply plane, the hubs, the tracer, the
+    membership store and the wire codec among them), building and
+    loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
     code = """
@@ -156,7 +158,13 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.batched.node", "etcd_tpu_torch.raft.confchange",
           "etcd_tpu_torch.raft.storage", "etcd_tpu_torch.raftexample.raftnode",
           "etcd_tpu_torch.storage.wal", "etcd_tpu_torch.storage.snap",
-          "etcd_tpu_torch.native.walog", "etcd_tpu_torch.pkg.metrics"):
+          "etcd_tpu_torch.native.walog", "etcd_tpu_torch.pkg.metrics",
+          "etcd_tpu_torch.batched.applyplane", "etcd_tpu_torch.batched.telemetry",
+          "etcd_tpu_torch.batched.membership", "etcd_tpu_torch.obs.artifacts",
+          "etcd_tpu_torch.obs.fleet", "etcd_tpu_torch.obs.tracer",
+          "etcd_tpu_torch.obs.export", "etcd_tpu_torch.obs.merge",
+          "etcd_tpu_torch.pkg.failpoint", "etcd_tpu_torch.pkg.errors",
+          "etcd_tpu_torch.transport.codec"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))

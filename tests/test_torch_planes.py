@@ -30,7 +30,7 @@ from etcd_tpu.batched import state as jstate
 from etcd_tpu.batched import step as jstep
 from etcd_tpu.batched import telemetry as jtel
 from etcd_tpu.obs import fleet as jfleet
-from etcd_tpu.pkg import metrics as pmet
+from etcd_tpu.pkg import metrics as jmet
 from etcd_tpu_torch.batched import kernels as tk
 from etcd_tpu_torch.batched import state as tstate
 from etcd_tpu_torch.batched import step as tstep
@@ -38,6 +38,7 @@ from etcd_tpu_torch.batched import telemetry as ttel
 from etcd_tpu_torch.batched.convert import msgs_from_numpy, state_from_numpy
 from etcd_tpu_torch.batched.engine import MultiRaftEngine
 from etcd_tpu_torch.obs import fleet as tfleet
+from etcd_tpu_torch.pkg import metrics as tmet
 
 from .batched.test_chaos import CFG as CHAOS_CFG
 from .batched.test_fleet import CFG_ON as FLEET_CFG
@@ -277,8 +278,8 @@ def records(hub):
 @pytest.mark.parametrize("plane", ["telemetry", "fleet"])
 def test_engine_planes_match_jax(plane):
     """State, inbox, the accumulated plane and the records that the
-    drains leave in etcd_tpu's own hubs, after the serial and then the
-    pipelined phase."""
+    drains leave in each package's own hub, after the serial and then
+    the pipelined phase."""
     cfg = TEL_CFG if plane == "telemetry" else FLEET_CFG
     n = cfg.num_instances
     jeng = JEngine(cfg)
@@ -287,11 +288,12 @@ def test_engine_planes_match_jax(plane):
     props = np.zeros(n, np.int32)
     props[::R] = 2
     if plane == "telemetry":
-        hubs = [jtel.TelemetryHub(n, registry=pmet.Registry(),
-                                  dump_on_trip=False) for _ in range(2)]
+        hubs = [tel.TelemetryHub(n, registry=met.Registry(),
+                                 dump_on_trip=False)
+                for tel, met in ((jtel, jmet), (ttel, tmet))]
     else:
-        hubs = [jfleet.FleetHub(n, R, cfg.num_groups,
-                                registry=pmet.Registry()) for _ in range(2)]
+        hubs = [fl.FleetHub(n, R, cfg.num_groups, registry=met.Registry())
+                for fl, met in ((jfleet, jmet), (tfleet, tmet))]
     for pipelined in (False, True):
         drive(jeng, jnp.asarray(props), pipelined)
         drive(teng, torch.as_tensor(props), pipelined)

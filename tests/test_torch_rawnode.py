@@ -35,16 +35,18 @@ from etcd_tpu.batched import msgblock as jmb
 from etcd_tpu.batched.rawnode import BatchedRawNode as JRawNode
 from etcd_tpu.batched.rawnode import RowRestore as JRowRestore
 from etcd_tpu.batched.state import BatchedConfig as JConfig
-from etcd_tpu.batched.telemetry import TelemetryHub
-from etcd_tpu.obs.fleet import FleetHub
-from etcd_tpu.obs.tracer import Tracer
-from etcd_tpu.pkg import metrics as pmet
+from etcd_tpu.obs.fleet import FleetHub as JFleetHub
+from etcd_tpu.obs.tracer import Tracer as JTracer
+from etcd_tpu.pkg import metrics as jmet
 from etcd_tpu_torch.batched import msgblock as tmb
 from etcd_tpu_torch.batched.rawnode import BatchedRawNode as TRawNode
 from etcd_tpu_torch.batched.rawnode import RowRestore as TRowRestore
 from etcd_tpu_torch.batched.state import LEADER, PRECANDIDATE, BatchedConfig
 from etcd_tpu_torch.batched.step import KIND_HB, NUM_KINDS, T_HB, T_SNAP
-from etcd_tpu_torch.batched.telemetry import TM_INDEX
+from etcd_tpu_torch.batched.telemetry import TM_INDEX, TelemetryHub
+from etcd_tpu_torch.obs.fleet import FleetHub as TFleetHub
+from etcd_tpu_torch.obs.tracer import Tracer as TTracer
+from etcd_tpu_torch.pkg import metrics as tmet
 
 from .batched.test_chaos import CFG as CHAOS_CFG
 from .batched.test_tracing import digest
@@ -62,6 +64,8 @@ DENSE_CFG = JConfig(num_groups=4, num_replicas=R, window=8,
 
 PKGS = {"jax": (JRawNode, JConfig, JRowRestore, jmb),
         "torch": (TRawNode, BatchedConfig, TRowRestore, tmb)}
+# Each package's own tracer, fleet hub and metrics module.
+OBS = {"jax": (JTracer, JFleetHub, jmet), "torch": (TTracer, TFleetHub, tmet)}
 MIRRORS = ("m_term", "m_vote", "m_commit", "m_last", "m_snap", "m_role",
            "m_lead", "m_ring", "m_lease_ticks", "applied", "stable")
 
@@ -181,16 +185,17 @@ class Side:
         g = cfg.num_groups
         self.pkg = pkg
         self.rns = {}
+        tracer_cls, hub_cls, met = OBS[pkg]
         for mid in MEMBERS:
             rn = make(pkg, cfg, np.arange(g, dtype=np.int32),
                       np.full(g, mid - 1, np.int32),
                       restore=restore(pkg, mid) if restore else None)
             if tracer:
-                rn.tracer = Tracer(member=str(mid), sample=1, seed=0,
-                                   registry=pmet.Registry())
+                rn.tracer = tracer_cls(member=str(mid), sample=1, seed=0,
+                                       registry=met.Registry())
             if fleet_hub:
-                rn.fleet_hub = FleetHub(g, R, g, member=str(mid),
-                                        registry=pmet.Registry())
+                rn.fleet_hub = hub_cls(g, R, g, member=str(mid),
+                                       registry=met.Registry())
             self.rns[mid] = rn
         self.net = Net(self.rns, seed, **net)
 
@@ -318,8 +323,9 @@ def test_chaos_config_timer_elections_prevote_check_quorum():
     """test_chaos.CFG with ticks every round: leaders come from timer
     elections with pre-vote; a member cut off for long enough has its
     leaderships deposed by check-quorum, and once back it is sent
-    MsgSnap (auto-compaction moved the floors past its log). Tracer and
-    FleetHub attached on both sides."""
+    MsgSnap (auto-compaction moved the floors past its log). Each side
+    has its own package's Tracer and FleetHub attached, and the hubs'
+    records are compared after every member round."""
     sides = both(CHAOS_CFG, seed=22, drop=0.05, delay=0.1, tracer=True,
                  fleet_hub=True)
     g = CHAOS_CFG.num_groups
@@ -552,20 +558,22 @@ def test_mixed_cluster_reads_each_others_frames():
 
 
 def test_refused_features_name_their_roadmap_item():
-    cfg = BatchedConfig(**HOSTED_CFG._replace(apply_plane=True)._asdict())
-    with pytest.raises(NotImplementedError, match="A13"):
-        TRawNode(cfg, device="cpu")
+    """`mesh=` is refused with the ROADMAP item that ports it. The apply
+    plane is ported: a plane-on rawnode builds, and the plane hooks of a
+    plane-off one refuse (as the reference's assert) or return nothing."""
     with pytest.raises(NotImplementedError, match="A12"):
         TRawNode(BatchedConfig(**HOSTED_CFG._asdict()), mesh=object(),
                  device="cpu")
+    cfg = BatchedConfig(**HOSTED_CFG._replace(apply_plane=True)._asdict())
+    assert TRawNode(cfg, device="cpu").plane is not None
     rn = make("torch", HOSTED_CFG, np.arange(4, dtype=np.int32),
               np.zeros(4, np.int32))
+    assert rn.plane is None and rn.drain_plane_events() == []
     for call in (lambda: rn.watch_set(0, 0, 1),
                  lambda: rn.plane_restore_row(0, [], [], [], [], 0, 0,
                                               False),
-                 rn.drain_plane_events, lambda: rn.plane_capture([0]),
-                 lambda: rn._plane_dispatch([], np.zeros(4, bool))):
-        with pytest.raises(NotImplementedError, match="A13"):
+                 lambda: rn.plane_capture([0])):
+        with pytest.raises(AssertionError, match="apply plane is off"):
             call()
 
 
@@ -606,7 +614,7 @@ def test_telemetry_frames_and_hub_records():
                            slots=np.full(g, mid - 1, np.int32),
                            device="cpu") for mid in MEMBERS}
             for cfg in cfgs]
-    hub = TelemetryHub(g, registry=pmet.Registry(), dump_on_trip=False)
+    hub = TelemetryHub(g, registry=tmet.Registry(), dump_on_trip=False)
     sets[1][1].telemetry_hub = hub
     lanes = []
     for rnd in range(8):
