@@ -26,7 +26,15 @@ raftexample's default width: 10,032 puts, a third forwarded, ReadIndex,
 a transfer, a voter removed and re-added, a compaction with a MsgSnap
 catch-up), holds CUDA nodes against CPU nodes Ready for Ready, and runs
 raftexample's replicated KV (three members, each in its own threads,
-with a WAL and snapshots on disk, one stopped and restarted from them).
+with a WAL and snapshots on disk, one stopped and restarted from them),
+drives the multi-raft server (three MultiRaftMembers of G=1,024 groups,
+hosted_bench's deployment, in one process: elections, 3,000 puts read
+back everywhere, linearizable reads, a member crashed and restarted on
+its WAL, the checkers), holds hosting members on CUDA against members
+on the CPU step by step (WAL records, KV, mirrors, health), and runs the
+chaos cells (message faults over the in-process, TCP and shm fabrics, a
+failpoint crash, a torn WAL tail, an fsync fail-stop, a WAL-pipeline
+crash window) over CUDA members, each closed by the strict checkers.
 Each phase prints one line; any failure raises and the script exits
 non-zero. It needs CUDA: without it, it prints no result and exits
 non-zero.
@@ -36,8 +44,8 @@ every main-path and node-path form warm and L2-cold; the slice phase
 counts launches per kernel and per form), a line with each phase's wall
 seconds, then a JSON line {"kernels": [...]} with every kernel's
 launches on each path (the engine's, the hosted one, the plane-on
-hosted one, the node's and raftexample's, each counted from 0 around
-its run), at its most
+hosted one, the node's, raftexample's and the hosting server's, each
+counted from 0 around its run), at its most
 launched engine form its device time warm and cold, plain-version time
 and bound, and every form with its launches per engine, rawnode and
 node round; then the card's name and power limit as nvidia-smi reports
@@ -105,7 +113,10 @@ def check_kernels(dev) -> "tuple[list, dict]":
     the main path gives either kernel (tools/kernel_times: the quorum's
     modes and its [N, R, R] ack-prefix tallies with unexpanded masks at
     R=3, the ring lookup at K in {1, 3, 4, 12}), each timed warm and
-    L2-cold at N = 196,608 rows, then every form a BatchedNode round
+    L2-cold at N = 196,608 rows, then every form a hosting member's
+    round gives them at N = 1,024 rows (hosting's default W = 64,
+    E = 8: the quorum at [N, 3], the general ring lookup at K in
+    {1, 3, 8, 24}), then every form a BatchedNode round
     gives them at N = 1 (B1 at R=3 with joint and empty configs; the
     general ring lookup at K in {1, 3, 8, 24} and W in {256, 32768},
     with queries at the floor, past last and across the ring's wrap),
@@ -139,6 +150,12 @@ def check_kernels(dev) -> "tuple[list, dict]":
         err[name] = max(err[name], assert_equal(form["key"], form["call"](),
                                                 form["plain"]()))
         variants.append({**kt.time_form(form), "n": n})
+    for form in kt.hosting_path_forms(dev):
+        name = form["key"].split()[0]
+        err[name] = max(err[name], assert_equal(
+            f"{form['key']} N={kt.HOSTING_GROUPS}", form["call"](),
+            form["plain"]()))
+        variants.append({**kt.time_form(form), "n": kt.HOSTING_GROUPS})
     for form in kt.node_path_forms(dev):
         name = form["key"].split()[0]
         for j, (call, plain) in enumerate(form["cases"]):
@@ -155,7 +172,10 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
     engine's main path, its launches on every path (each counted from 0
     around its own run), and every form it was timed at with that form's
     launches per engine round (N = 196,608), per rawnode round
-    (N = 65,536) and per node round (N = 1)."""
+    (N = 65,536), per hosting member round (N = 1,024) and per node
+    round (N = 1)."""
+    from etcd_tpu_torch.tools import kernel_times as kt
+
     per_round = {path: {k: v / p["rounds"] for k, v in p["forms"].items()}
                  for path, p in paths.items() if "forms" in p}
     rows = []
@@ -166,6 +186,8 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
         forms = []
         for v in mine:
             path_rounds = ({"node": "node"} if v["n"] == 1 else
+                           {"hosting": "hosting"}
+                           if v["n"] == kt.HOSTING_GROUPS else
                            {"engine": "slice", "rawnode": "hosted"})
             forms.append({
                 **{k: v[k] for k in ("form", "n", "ms", "cold_ms",
@@ -1974,6 +1996,32 @@ EXAMPLE_PUTS = 10_000
 EXAMPLE_WINDOW = 64  # the client's puts in flight (not yet visible everywhere)
 
 
+class DeviceLockTimer:
+    """From construction to restore(), every rawnode acquire of the
+    process-wide device lock (graph.device_work) goes through this
+    object, which records in `waits` the seconds each acquire waited."""
+
+    def __init__(self):
+        from etcd_tpu_torch.batched import rawnode
+        from etcd_tpu_torch.batched.graph import device_work
+
+        self._rawnode, self._device_work = rawnode, device_work
+        self._lock = device_work()
+        self.waits = []
+        rawnode.device_work = lambda: self
+
+    def __enter__(self):
+        t = time.perf_counter()
+        self._lock.acquire()
+        self.waits.append(time.perf_counter() - t)
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+    def restore(self) -> None:
+        self._rawnode.device_work = self._device_work
+
+
 def run_raftexample(dev, puts: int = EXAMPLE_PUTS,
                     timeout_s: float = 400.0) -> dict:
     """Three raftexample members on `dev`, each with its Ready loop,
@@ -1990,8 +2038,6 @@ def run_raftexample(dev, puts: int = EXAMPLE_PUTS,
     import threading
 
     from etcd_tpu_torch.batched import hopper_kernels as hk
-    from etcd_tpu_torch.batched import rawnode as rawnode_mod
-    from etcd_tpu_torch.batched.graph import device_work
     from etcd_tpu_torch.raftexample import (
         ExampleRaftNode, InProcNetwork, ReplicatedKV)
 
@@ -2045,19 +2091,8 @@ def run_raftexample(dev, puts: int = EXAMPLE_PUTS,
 
     # The device lock's acquire waits: the members' rounds serialize on
     # it (graph.device_work), as they would on the shared stream.
-    lock, waits = device_work(), []
-
-    class TimedLock:
-        def __enter__(self):
-            t = time.perf_counter()
-            lock.acquire()
-            waits.append((time.perf_counter() - t) * 1e3)
-
-        def __exit__(self, *exc):
-            lock.release()
-
-    timed_lock = TimedLock()
-    rawnode_mod.device_work = lambda: timed_lock
+    lock_timer = DeviceLockTimer()
+    waits = lock_timer.waits
     hk.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -2135,20 +2170,661 @@ def run_raftexample(dev, puts: int = EXAMPLE_PUTS,
                                    "samples": len(lat)},
             lookups=lookups[0], snapshot_index=snaps, captures=captures,
             device_lock_waits=len(waits),
-            device_lock_wait_ms={"p50": float(np.percentile(waits, 50)),
-                                 "p99": float(np.percentile(waits, 99)),
-                                 "sum_s": sum(waits) / 1e3},
+            device_lock_wait_ms={**pcts(waits), "sum_s": sum(waits)},
             capture_s=[c["seconds"] for _, rn in rawnodes
                        for c in rn.capture_stats],
             launches=launches, form_launches=forms,
             card=smi("name,power.limit") if dev.type == "cuda" else str(dev))
         return launches
     finally:
-        rawnode_mod.device_work = device_work
+        lock_timer.restore()
         for m in members.values():
             m.stop()
         net.stop()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase: hosting (MultiRaftMember: the multi-raft server) ------------------
+
+HOSTING_PUTS = 3000
+HOSTING_VALUE = 64      # bytes
+HOSTING_INFLIGHT = 4    # puts in flight per group
+HOSTING_READS = 96      # linearizable_get samples
+HOSTING_PARITY_GROUPS = 256
+
+
+def hosting_config(groups: int, **kw):
+    """MultiRaftMember's default config (hosting.py: W=64, E=8, P=4,
+    pre-vote, check-quorum, auto-compaction) at `groups`, with `kw`
+    (telemetry, fleet_summary) on top."""
+    from etcd_tpu_torch.batched.state import BatchedConfig
+
+    return BatchedConfig(
+        num_groups=groups, num_replicas=R, window=64, max_ents_per_msg=8,
+        max_props_per_round=4, election_timeout=10, heartbeat_timeout=1,
+        pre_vote=True, check_quorum=True, auto_compact=True, **kw)
+
+
+def chaos_config(groups: int = 8):
+    """tests/batched/test_chaos.py's CFG at `groups`: the prevote_cq
+    parity config with the fleet summary on."""
+    return parity_configs(groups)["prevote_cq"]._replace(fleet_summary=True)
+
+
+def pcts(xs, scale: float = 1e3) -> dict:
+    """p50 and p99 of `xs` (seconds), in ms."""
+    if not len(xs):
+        return {"p50": None, "p99": None, "n": 0}
+    a = np.asarray(xs, np.float64) * scale
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)), "n": int(len(a))}
+
+
+ROUND_PHASES = ("stage", "step", "extract", "collect")
+
+
+def instrument_member(m, walls: list, fsyncs: list,
+                      phases: dict = None) -> None:
+    """Record the wall seconds of each of member m's rounds (with the
+    rawnode's phase_last split into `phases`) and of each of its WAL
+    fsyncs (the calls its loops make through the instance)."""
+    run, flush = m.run_round, m.wal.flush
+
+    def timed_round():
+        t = time.perf_counter()
+        try:
+            return run()
+        finally:
+            walls.append(time.perf_counter() - t)
+            if phases is not None:
+                for p in ROUND_PHASES:
+                    phases[p].append(m.rn.phase_last[p])
+
+    def timed_flush(sync=True):
+        t = time.perf_counter()
+        try:
+            return flush(sync=sync)
+        finally:
+            if sync:
+                fsyncs.append(time.perf_counter() - t)
+
+    m.run_round, m.wal.flush = timed_round, timed_flush
+
+
+def leader_of(members, g: int):
+    return next((m for m in members if m.is_leader(g)), None)
+
+
+def balance_leaders(members, groups: int, timeout: float) -> int:
+    """hosted_bench's layout, group g led by member g % 3 + 1, by
+    transfers from the current leader; returns the groups still
+    misplaced when `timeout` runs out (0 when balanced)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        bad = []
+        for g in range(groups):
+            lead = leader_of(members, g)
+            if lead is None or lead.id != g % R + 1:
+                bad.append((g, lead))
+        if not bad or time.monotonic() > deadline:
+            return len(bad)
+        for g, lead in bad:
+            if lead is not None:
+                lead.transfer_leader(g, g % R + 1)
+        time.sleep(0.3)
+
+
+def hosting_puts(members, groups: int, n: int, first: int, value: bytes,
+                 inflight: int, timeout: float) -> dict:
+    """hosted_bench's put driver (hosting_proc's bench op), in process:
+    put `n` keys round-robin over the groups with at most `inflight` in
+    flight per group, each proposed on its group's leader and acked once
+    that leader applied it (read-your-write); the applied watermarks
+    say which groups to check, a sweep every second re-proposes a put
+    unacked for 2 s, and the loop sleeps 5 ms between passes. Returns
+    the acked map, latencies and counts."""
+    from etcd_tpu_torch.batched.hosting import GroupKV
+
+    by_id = {m.id: m for m in members}
+    pend = {g: deque() for g in range(groups)}
+    acked, lat = {}, []
+    i = outstanding = retries = 0
+    t0 = last_sweep = time.perf_counter()
+    deadline = t0 + timeout
+    seen = {m.id: m.applied_index.copy() for m in members}
+    while i < n or outstanding:
+        now = time.perf_counter()
+        if now > deadline:
+            g = (first + i) % groups
+            raise AssertionError(
+                f"hosting: {outstanding} puts unacked and {n - i} not "
+                f"proposed after {timeout} s (group {g}: leaders "
+                f"{[(m.id, m.leader_of(g), m.is_leader(g)) for m in members]})")
+        while i < n and outstanding < inflight * groups:
+            g = (first + i) % groups
+            if len(pend[g]) >= inflight:
+                break
+            k = b"put-%06d" % (first + i)
+            lead = leader_of(members, g)
+            if lead is None or not lead.propose(
+                    g, GroupKV.put_payload(k, value)):
+                break  # no leader here yet: retry on the next pass
+            pend[g].append([k, now, now, lead.id])
+            outstanding += 1
+            i += 1
+        for mid, m in by_id.items():
+            arr = m.applied_index.copy()
+            moved = np.nonzero(arr != seen[mid])[0]
+            seen[mid] = arr
+            for g in moved.tolist():
+                q = pend[g]
+                while q and q[0][3] == mid and m.get(g, q[0][0]) == value:
+                    k, t_put, _t, _mid = q.popleft()
+                    acked[(g, k)] = value
+                    lat.append(now - t_put)
+                    outstanding -= 1
+        if now - last_sweep > 1.0:
+            last_sweep = now
+            for g, q in pend.items():
+                for rec in q:
+                    if now - rec[2] > 2.0:
+                        lead = leader_of(members, g)
+                        if lead is not None and lead.propose(
+                                g, GroupKV.put_payload(rec[0], value)):
+                            rec[2], rec[3] = now, lead.id
+                            retries += 1
+        time.sleep(0.005)
+    return {"acked": acked, "lat": lat, "seconds": time.perf_counter() - t0,
+            "retries": retries}
+
+
+def linearizable_reads(members, acked: dict, n: int) -> list:
+    """linearizable_get of `n` sampled acked keys, each on its group's
+    leader, each equal to the acked value; returns their seconds. (A
+    function of its own: no member outlives it in a local.)"""
+    rng = np.random.RandomState(SEED)
+    keys = list(acked)
+    lat = []
+    for j in rng.choice(len(keys), n, replace=False):
+        g, k = keys[j]
+        t = time.perf_counter()
+        got = leader_of(members, g).linearizable_get(g, k, timeout=10.0)
+        lat.append(time.perf_counter() - t)
+        if got != acked[(g, k)]:
+            raise AssertionError(f"hosting: linearizable_get g{g} {k!r}")
+    return lat
+
+
+def run_hosting(dev, groups: int | None = None, puts: int = HOSTING_PUTS,
+                tick_interval: float = 0.02,
+                reads: int = HOSTING_READS) -> dict:
+    """The multi-raft server on `dev`: three MultiRaftMembers of `groups`
+    groups in this process over InProcRouter, hosting's default config
+    with telemetry and the fleet summary on, the pipelined Ready drain,
+    each member's WAL on local disk. Reads of every member's admin
+    surface (health, stats, conf_snapshot, peer_match, the leader view)
+    run in a thread while the members capture their first rounds. Every
+    group elects and leadership is balanced; `puts` 64-byte puts, 4 in
+    flight per group, each read back on all three members; `reads`
+    linearizable_get samples; member 3 is crashed and its rawnode freed,
+    one put per group commits without it, and it is restarted on its WAL
+    and caught up: the card memory the crash freed must cover what the
+    restarted member takes from its boot to its first capture (its
+    state and its graph's pool). The checkers close the run. `groups`
+    defaults to hosted_bench's G (kernel_times.HOSTING_GROUPS). Returns
+    the launches, their forms and the member rounds of the put load."""
+    import gc
+    import shutil
+    import tempfile
+    import weakref
+
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.batched import hosting
+    from etcd_tpu_torch.batched.graph import device_work
+    from etcd_tpu_torch.functional import (
+        committed_never_lost, multiraft_hash_check)
+    from etcd_tpu_torch.tools import kernel_times as kt
+
+    groups = kt.HOSTING_GROUPS if groups is None else groups
+    cuda = dev.type == "cuda"
+    cfg = hosting_config(groups, telemetry=True, fleet_summary=True)
+    value = b"v" * HOSTING_VALUE
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-hosting-")
+    walls = {mid: [] for mid in MEMBERS}
+    phases = {p: [] for p in ROUND_PHASES}
+    fsyncs = []
+    lock_timer = DeviceLockTimer()
+    waits = lock_timer.waits
+    router = hosting.InProcRouter()
+    members, retired = {}, []
+
+    def boot(mid):
+        m = hosting.MultiRaftMember(mid, R, groups, tmp, cfg=cfg,
+                                    tick_interval=tick_interval,
+                                    pipeline=True, device=dev)
+        instrument_member(m, walls[mid], fsyncs, phases)
+        router.attach(m)
+        members[mid] = m
+        return m
+
+    def rounds():
+        return sum(m.stats["rounds"] for m in members.values())
+
+    def allocated():
+        # Under the device lock no member is inside its round's device
+        # work, so the reading holds no other round's temporaries.
+        if not cuda:
+            return 0
+        with device_work():
+            return torch.cuda.memory_allocated(dev)
+
+    def pool_bytes(pool):
+        # Card memory reserved for a graph pool, once the allocator has
+        # released the cached blocks of every pool no graph holds.
+        with device_work():
+            torch.cuda.empty_cache()
+            return sum(seg["total_size"]
+                       for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg["segment_pool_id"]) == pool)
+
+    def wait(pred, what, limit):
+        deadline = time.perf_counter() + limit
+        while not pred():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"hosting: {what} timed out")
+            time.sleep(0.01)
+
+    admin_n, read_err, stop_reads = [0], [], threading.Event()
+
+    def admin_reads():
+        # The C8 readers: hosting's admin surface from another thread,
+        # while the members capture their first rounds.
+        try:
+            while not stop_reads.is_set():
+                for m in list(members.values()):
+                    m.health()
+                    m.conf_snapshot()
+                    dict(m.stats)
+                    m.rn.peer_match()
+                    _term, role, _lead = m.rn.m_view
+                    int(role.sum())
+                    admin_n[0] += 1
+        except Exception as e:  # noqa: BLE001 — raised below
+            read_err.append(e)
+
+    try:
+        t0 = time.perf_counter()
+        for mid in MEMBERS:
+            boot(mid)
+        reader = threading.Thread(target=admin_reads, daemon=True)
+        reader.start()
+        for mid in MEMBERS:
+            members[mid].start()
+        hosting.wait_group_leaders(
+            lambda: list(members.values()), groups, timeout=180.0)
+        elect_s = time.perf_counter() - t0
+        stop_reads.set()
+        reader.join(30)
+        if read_err:
+            raise AssertionError(f"hosting: admin reads raised {read_err}")
+        if cuda and {m.rn.captures for m in members.values()} != {1}:
+            raise AssertionError("hosting: captures "
+                                 f"{[m.rn.captures for m in members.values()]}")
+        misplaced = balance_leaders(list(members.values()), groups, 60.0)
+        hosting.wait_group_leaders(
+            lambda: list(members.values()), groups, timeout=60.0)
+
+        # The put load, with every launch count set to 0 just before.
+        for w in (*walls.values(), *phases.values()):
+            w.clear()
+        fsyncs.clear()
+        waits.clear()
+        hk.reset_launches()
+        r0 = rounds()
+        load = hosting_puts(list(members.values()), groups, puts, 0, value,
+                            HOSTING_INFLIGHT, timeout=300.0)
+        load_rounds = rounds() - r0
+        launches, forms = dict(hk.LAUNCHES), dict(hk.FORM_LAUNCHES)
+        for name, count in launches.items():
+            if count == 0:
+                raise AssertionError(f"hosting: {name} was never launched")
+        round_walls = [x for w in walls.values() for x in w]
+        phase_ms = {p: pcts(v) for p, v in phases.items()}
+        fsync_s, wait_s = list(fsyncs), list(waits)
+        acked = dict(load["acked"])
+        if len(acked) != puts:
+            raise AssertionError(f"hosting: {len(acked)} of {puts} acked")
+        wait(lambda: all(m.get(g, k) == v for m in members.values()
+                         for (g, k), v in acked.items()),
+             "every acked put on every member", 120.0)
+
+        # Device time per member round: a second wave of one put per
+        # group under the profiler (every member's thread records).
+        device = {"device_ms": "not measured"}
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            from etcd_tpu_torch.tools.kernel_times import (
+                _device_us, kernel_events)
+
+            r1 = rounds()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wave = hosting_puts(list(members.values()), groups, groups,
+                                    puts, value, 1, timeout=120.0)
+                torch.cuda.synchronize(dev)
+            wave_rounds = rounds() - r1
+            acked.update(wave["acked"])
+            ev = kernel_events(prof)
+            kern = [e for e in ev
+                    if not e.key.startswith(("Memcpy", "Memset"))]
+            if kern and wave_rounds:
+                device = {
+                    "device_ms": sum(_device_us(e) for e in kern) / 1e3
+                    / wave_rounds,
+                    "kernels": sum(e.count for e in kern) / wave_rounds,
+                    "copy_ms": sum(_device_us(e) for e in ev
+                                   if e not in kern) / 1e3 / wave_rounds,
+                    "member_rounds": wave_rounds}
+
+        lin = linearizable_reads(list(members.values()), acked, reads)
+
+        # Crash member 3, free its rawnode, restart it on its WAL.
+        old = members.pop(3)
+        pool = tuple(old.rn._graphs._pool) if cuda else None
+        pool_live = pool_bytes(pool) if cuda else 0
+        alloc_live = allocated()
+        old.crash()
+        for t in (old._runner, old._ticker, old._drainer):
+            if t is not None:
+                t.join(30)
+        retired.append(old.hub.trips())
+        del router.members[3]
+        gone = weakref.ref(old.rn)
+        old = None
+        gc.collect()
+        alloc_freed = alloc_live - allocated()
+        if gone() is not None:
+            held = [type(r).__name__ for r in gc.get_referrers(gone())]
+            raise AssertionError("hosting: the crashed member's rawnode "
+                                 f"is still referenced ({held})")
+        pool_kept = pool_bytes(pool) if cuda else 0
+        if cuda and (pool_live <= 0 or pool_kept):
+            raise AssertionError(
+                f"hosting: the crashed member's graph pool held {pool_live}"
+                f" bytes on the card and keeps {pool_kept}")
+        down = hosting_puts(list(members.values()), groups, groups,
+                            puts + groups, value, 1, timeout=120.0)
+        acked.update(down["acked"])
+        t_restart = time.perf_counter()
+        alloc_boot = allocated()
+        m3 = boot(3)
+        m3.start()
+        wait(lambda: m3.rn.captures >= 1 or not cuda,
+             "member 3's first capture", 60.0)
+        alloc_taken = allocated() - alloc_boot
+        # What one member holds on the card (state and graph pool) must
+        # have gone with the crash; 64 KiB covers allocator rounding.
+        if cuda and (alloc_taken <= 0
+                     or alloc_freed < alloc_taken - (64 << 10)):
+            raise AssertionError(
+                "hosting: the crash freed "
+                f"{alloc_freed} bytes on the card, a member takes "
+                f"{alloc_taken} from boot to its first capture")
+        want = np.maximum(members[1].applied_index, members[2].applied_index)
+        wait(lambda: bool((m3.applied_index >= want).all()),
+             "member 3's catch-up", 180.0)
+        catchup_s = time.perf_counter() - t_restart
+        mems = list(members.values())
+        multiraft_hash_check(mems, timeout=60.0)
+        committed_never_lost(mems, acked, timeout=60.0)
+        trips = sum(retired) + sum(m.hub.trips() for m in mems)
+        if trips:
+            raise AssertionError(f"hosting: {trips} invariant trips")
+        captures = {mid: m.rn.captures for mid, m in members.items()}
+        if cuda and set(captures.values()) != {1}:
+            raise AssertionError(f"hosting: captures {captures}")
+        lat = load["lat"]
+        result = dict(
+            groups=groups, members=len(MEMBERS), puts=puts,
+            value_bytes=HOSTING_VALUE, inflight_per_group=HOSTING_INFLIGHT,
+            config="hosting default (W=64, E=8, P=4, pre-vote, "
+                   "check-quorum) + telemetry + fleet, pipelined drain",
+            tick_interval_s=tick_interval, election_s=elect_s,
+            leaders_misplaced_after_balance=misplaced,
+            puts_per_s=puts / load["seconds"], load_s=load["seconds"],
+            put_ms=pcts(lat), put_retries=load["retries"],
+            member_rounds=load_rounds,
+            rounds_per_member=load_rounds / len(MEMBERS),
+            round_wall_ms=pcts(round_walls), round_phase_ms=phase_ms,
+            device_per_member_round=device,
+            captures=captures,
+            launches=launches,
+            launches_per_member_round={k: v / max(load_rounds, 1)
+                                       for k, v in launches.items()},
+            form_launches_per_member_round={
+                k: v / max(load_rounds, 1) for k, v in forms.items()},
+            wal_fsync_ms=pcts(fsync_s), device_lock_wait_ms=pcts(wait_s),
+            linearizable_get_ms=pcts(lin),
+            admin_reads_during_capture=admin_n[0],
+            restart_catchup_s=catchup_s,
+            crashed_member_bytes_freed=alloc_freed,
+            crashed_member_graph_pool_bytes=pool_live,
+            restarted_member_bytes_to_capture=alloc_taken,
+            invariant_trips=trips,
+            card=smi("name,power.limit") if cuda else str(dev))
+        log("hosting", **result)
+        return {"launches": launches, "forms": forms,
+                "rounds": max(load_rounds, 1)}
+    finally:
+        stop_reads.set()
+        lock_timer.restore()
+        for m in members.values():
+            m.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase: hosting_parity (members on CUDA vs members on the CPU) -----------
+
+
+def run_hosting_parity(dev, plain_dev=torch.device("cpu"),
+                       groups: int = HOSTING_PARITY_GROUPS,
+                       steps: int = 160) -> dict:
+    """Three MultiRaftMembers on `dev` against three on the CPU, at
+    test_chaos.CFG's values and `groups` groups, synchronous and in
+    lockstep (tools/hosting_lockstep: pipeline=False, never started,
+    InProcRouter, one seeded schedule of ticks, puts, deletes, a
+    transfer, an isolate and heal, a joint membership change and a
+    crash and restart). After every step both sides hold equal WAL
+    records, KV snapshots and applied indexes, mirrors (m_view, m_last,
+    m_snap) and health()."""
+    import shutil
+    import tempfile
+
+    from etcd_tpu_torch.batched import hosting
+    from etcd_tpu_torch.tools.hosting_lockstep import (
+        Lockstep, first_diff, run_schedule, step_clock)
+
+    cfg = chaos_config(groups)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-hosting-parity-")
+
+    def check(s, event, obs):
+        diff = first_diff(obs[0], obs[1])
+        if diff is not None:
+            raise AssertionError(
+                f"hosting_parity step {s} ({event or 'round'}): {diff}")
+
+    t0 = time.perf_counter()
+    with step_clock(hosting) as clock:
+        a = Lockstep(hosting, os.path.join(tmp, "dev"), cfg, R, groups,
+                     device=dev)
+        b = Lockstep(hosting, os.path.join(tmp, "cpu"), cfg, R, groups,
+                     device=plain_dev)
+        try:
+            counts = run_schedule([a, b], clock, steps=steps, check=check,
+                                  puts_per_step=8)
+        finally:
+            a.stop()
+            b.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+    captures = {mid: m.rn.captures for mid, m in a.members.items()}
+    if dev.type == "cuda" and set(captures.values()) != {1}:
+        raise AssertionError(f"hosting_parity: captures {captures}")
+    for ev in ("demote", "add-learner", "promote"):
+        if counts[ev] != f"{{{groups - 1}: 'ok'}}":
+            raise AssertionError(f"hosting_parity: {ev} {counts[ev]}")
+    log("hosting_parity", groups=groups, equal=True,
+        seconds=time.perf_counter() - t0, captures=captures,
+        wal_records={mid: len(w) for mid, w in a.wal_log.items()},
+        **counts)
+    return counts
+
+
+# -- phase: chaos (the seeded fault plane over CUDA members) -----------------
+
+
+def chaos_lead_by_transfer(h, mid: int, groups: int) -> int:
+    """A group member `mid` leads, handed to it by a transfer."""
+    m = h.members[mid]
+    deadline = time.monotonic() + 60.0
+    while time.monotonic() < deadline:
+        for g in range(groups):
+            if m.is_leader(g):
+                return g
+        for g in range(groups):
+            lead = leader_of(h.alive(), g)
+            if lead is not None and lead.id != mid:
+                lead.transfer_leader(g, mid)
+                break
+        time.sleep(0.2)
+    raise AssertionError(f"chaos: member {mid} never led a group")
+
+
+def chaos_cells(dev) -> dict:
+    """The chaos cells, each a fresh ChaosHarness of CUDA members at
+    test_chaos.CFG closed by run_invariant_checks (strict: KV-hash
+    parity, committed-never-lost, one leader per term) with
+    invariant_trips() == 0: name -> episode(tmp_dir)."""
+    from etcd_tpu_torch.batched.faults import (
+        ChaosHarness, FaultSpec, LeaderObserver, run_invariant_checks)
+    from etcd_tpu_torch.pkg import failpoint
+
+    cfg = chaos_config()
+    g = cfg.num_groups
+    msg_faults = FaultSpec(drop=0.05, dup=0.05, delay=0.08,
+                           delay_max_s=0.04, reorder=0.2)
+
+    def episode(body, spec=None, transport="inproc", **kw):
+        def run(tmp):
+            h = ChaosHarness(tmp, 101, spec or FaultSpec(), num_members=R,
+                             num_groups=g, cfg=cfg, transport=transport,
+                             device=dev, **kw)
+            obs = LeaderObserver(h.alive)
+            try:
+                h.wait_leaders()
+                obs.start()
+                out = body(h) or {}
+                h.plan.quiesce()
+                run_invariant_checks(h, obs, expect_members=R)
+                if h.invariant_trips():
+                    raise AssertionError("chaos: invariant trips")
+                return {**out, "captures": sorted(
+                    m.rn.captures for m in h.members.values())}
+            finally:
+                obs.stop()
+                h.stop()
+                failpoint.disable_all()
+        return run
+
+    def faulty(h):
+        acked = h.run_workload(20)
+        if acked < 10:
+            raise AssertionError(f"chaos: only {acked}/20 writes acked")
+        st = h.fabric.stats()
+        if not st.get("dropped") or not st.get("delayed"):
+            raise AssertionError(f"chaos: no faults injected {st}")
+        return {"acked": acked, "fabric": st}
+
+    def crash_replay(h):
+        h.run_workload(6, prefix=b"pre")
+        h.crash_on_failpoint(2, "after_save")
+        acked = h.run_workload(6, prefix=b"mid")
+        h.restart(2)
+        h.wait_leaders()
+        h.run_workload(3, prefix=b"post")
+        return {"acked_mid": acked}
+
+    def torn(h):
+        h.run_workload(8, prefix=b"pre")
+        h.crash(3)
+        chop = h.torn_tail(3)
+        if chop <= 0:
+            raise AssertionError("chaos: no WAL tail to tear")
+        h.run_workload(4, prefix=b"mid")
+        h.restart(3)
+        h.wait_leaders()
+        h.touch_all_groups()
+        return {"chopped_bytes": chop}
+
+    def fsync_failstop(h):
+        h.run_workload(6, prefix=b"pre")
+        grp = chaos_lead_by_transfer(h, 2, g)
+        m = h.members[2]
+        h.disk.arm_fsync_error(2, sticky=True)
+        m.propose(grp, b"P" + b"doomed\x00never")
+        cause = h.wait_fail_stop(2, timeout=30.0)
+        if not cause.startswith("fsync:") or m.get(grp, b"doomed"):
+            raise AssertionError(f"chaos: fail-stop {cause!r}")
+        h.failstop_envelope(2)
+        h.run_workload(4, prefix=b"mid")
+        h.disk.quiesce()
+        h.restart(2)
+        h.wait_leaders()
+        h.touch_all_groups()
+        return {"cause": cause}
+
+    def walpipe_window(h):
+        h.run_workload(6, prefix=b"pre")
+        h.crash_on_failpoint(2, "before_fsync_release")
+        h.torn_tail(2)
+        acked = h.run_workload(6, prefix=b"mid")
+        h.restart(2)
+        h.wait_leaders()
+        h.touch_all_groups()
+        return {"acked_mid": acked}
+
+    return {
+        "msg_faults_inproc": episode(faulty, msg_faults),
+        "msg_faults_tcp": episode(faulty, msg_faults, "tcp"),
+        "msg_faults_shm": episode(faulty, msg_faults, "shm"),
+        "failpoint_crash_replay": episode(crash_replay),
+        "torn_wal_tail": episode(torn),
+        "fsync_failstop": episode(fsync_failstop),
+        "walpipe_crash_window": episode(walpipe_window, wal_pipeline=True),
+    }
+
+
+def run_chaos(dev, cells=None) -> dict:
+    """Every chaos cell (or those named in `cells`) on `dev`, each in a
+    temp directory of its own."""
+    import shutil
+    import tempfile
+
+    results = {}
+    for name, run in chaos_cells(dev).items():
+        if cells is not None and name not in cells:
+            continue
+        tmp = tempfile.mkdtemp(prefix=f"chip-smoke-chaos-{name}-")
+        t0 = time.perf_counter()
+        try:
+            out = run(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if dev.type == "cuda" and set(out["captures"]) != {1}:
+            raise AssertionError(f"chaos {name}: captures {out['captures']}")
+        results[name] = {**out, "seconds": time.perf_counter() - t0}
+    log("chaos", strict=True, invariant_trips=0, cells=results,
+        card=smi("name,power.limit") if dev.type == "cuda" else str(dev))
+    return results
 
 
 def main() -> int:
@@ -2203,6 +2879,9 @@ def main() -> int:
     timed("node_parity", run_node_parity, dev)
     paths["raftexample"] = {"launches": timed("raftexample",
                                               run_raftexample, dev)}
+    paths["hosting"] = timed("hosting", run_hosting, dev)
+    timed("hosting_parity", run_hosting_parity, dev)
+    timed("chaos", run_chaos, dev)
     log("phases", seconds=phase_s)
     print(json.dumps({"kernels": kernel_rows(variants, err, paths)}))
     print(smi("name,power.limit"))

@@ -27,8 +27,31 @@ lockstep, one row per replica instance:
 - ``msgblock``: the SoA message codec (frames byte-equal to etcd_tpu's).
 - ``graph``:   the capture, replay and write-back shared by the two.
 - ``convert``: state and messages to and from numpy.
+- ``node``:    BatchedNode, the raft.Node boundary over the rawnode.
+- ``hosting``: MultiRaftMember/MultiRaftCluster — G groups × R members
+               served end-to-end (native WAL, per-group KV apply), with
+               the in-process and TCP routers.
+- ``shmfabric``: the mmap'd shared-memory ring fabric between members.
+- ``faults``:  the seeded chaos plane over hosting (message, storage,
+               disk and process faults) and its invariant checks.
 """
 
 from .state import BatchedConfig, BatchedState, init_state  # noqa: F401
 from .step import make_step_round  # noqa: F401
 from .engine import MultiRaftEngine  # noqa: F401
+from .rawnode import BatchedRawNode, BatchedReady, RowRestore  # noqa: F401
+from .node import BatchedNode  # noqa: F401
+from .hosting import MultiRaftCluster, MultiRaftMember  # noqa: F401
+from .faults import (  # noqa: F401
+    ChaosHarness,
+    FaultPlan,
+    FaultSpec,
+    FaultyFabric,
+    LeaderObserver,
+)
+from .telemetry import (  # noqa: F401
+    INV_NAMES,
+    TM_INDEX,
+    TM_NAMES,
+    TelemetryHub,
+)

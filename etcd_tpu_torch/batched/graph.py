@@ -24,10 +24,16 @@ enqueue. On the CPU the same lock serializes the members' rounds: a
 CPU round is ~2,000 small ops, each of which takes the GIL again, and
 three rounds side by side convoy on it (a three-member raftexample
 cluster on the CPU ran its rounds 2-3x slower without the lock).
+
+A graph's destruction is such a call too. A crashed or retired owner's
+graphs are dropped under the lock (``RoundGraphs.__del__``), and the
+garbage collector is off while a capture runs, so no collection in any
+thread frees an unreachable owner's graphs in the middle of it.
 """
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from typing import Callable, Iterable, List, Set, Tuple
@@ -82,15 +88,27 @@ class RoundGraphs:
         """Capture `body` for `key`. A failed capture raises."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with hk.recorded_launches() as launches:
-            with torch.cuda.graph(graph, pool=self._pool):
-                body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with hk.recorded_launches() as launches:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    body()
+        finally:
+            if collecting:
+                gc.enable()
         self._pool = graph.pool()
         self.captures += 1
         self.capture_stats.append({**info,
                                    "seconds": time.perf_counter() - t0})
         self._graphs[key] = (graph, launches)
         return self._graphs[key]
+
+    def __del__(self) -> None:
+        graphs = self.__dict__.get("_graphs")
+        if graphs:
+            with device_work():
+                graphs.clear()
 
     def run(self, key, body: Callable[[], None], times: int = 1,
             **info) -> None:

@@ -194,15 +194,17 @@ def term_inputs(n: int, w: int, k: int, gen: torch.Generator, dev):
     return log_term, snap_index, snap_term, last, idx if k > 1 else idx[:, 0]
 
 
-def main_path_forms(dev, k=k_plain, hk=hk_plain):
+def main_path_forms(dev, k=k_plain, hk=hk_plain, n: int = 0,
+                    w: int = W, e: int = E):
     """Every form the main path gives the two kernels, at N = 196,608
     rows: a list of dicts with the form's key (as
     hopper_kernels.FORM_LAUNCHES counts it), `call` through the site
     functions of kernels module `k` (and the fused quorum form through
     `hk`), `plain` through this checkout's plain forms, and the bytes
-    and operations of its bound."""
+    and operations of its bound. `n`, `w` and `e` give another path's
+    rows, window and entries per message (hosting_path_forms)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    n = GROUPS * R
+    n = n or GROUPS * R
     match, voter, voter_out, in_joint, votes = quorum_inputs(n, R, gen, dev)
     masks = (voter, voter_out, in_joint)
     prefix = torch.rand((n, R, R), generator=gen, device=dev) < 0.5
@@ -239,27 +241,42 @@ def main_path_forms(dev, k=k_plain, hk=hk_plain):
     ]
     # The round's index widths: [N] (K=1), _emit's [N, R] prev indexes,
     # _handle_append's [N, E] entry indexes and _emit's [N, R, E]
-    # entries (K=12).
-    for width in (1, R, E, R * E):
+    # entries (K=12 on the bench config).
+    for width in (1, R, e, R * e):
         log_term, snap_index, snap_term, last, idx = term_inputs(
-            n, W, width, gen, dev)
-        if width == R * E:
-            idx = idx.view(n, R, E)
+            n, w, width, gen, dev)
+        if width == R * e:
+            idx = idx.view(n, R, e)
         args = (log_term, snap_index, snap_term, last, idx)
         flat = idx.view(n, -1)
         ring = ((flat > snap_index.unsqueeze(-1))
                 & (flat <= last.unsqueeze(-1)))
         # Distinct ring slots this data reads (the bytes it must move).
-        slots = torch.where(flat >= 0, flat % W, 0).long() + W * torch.arange(
+        slots = torch.where(flat >= 0, flat % w, 0).long() + w * torch.arange(
             n, device=dev).unsqueeze(-1)
         ring_reads = torch.unique(slots[ring]).numel()
         forms.append({
-            "key": f"term_at_batch K={width} W={W}",
+            "key": f"term_at_batch K={width} W={w}",
             "call": lambda a=args: k.term_at(*a),
             "plain": lambda a=args: hk_plain.term_at_batch_ref(*a),
             "bytes": 4 * (3 * n + 2 * flat.numel() + ring_reads),
             "ops": 8 * flat.numel()})
     return forms
+
+
+# The hosting path (batched/hosting.py): a member's rawnode has one row
+# per group (hosted_bench's G = 1,024) at MultiRaftMember's default
+# config, W = 64 and E = 8, so the ring lookup meets K = 1, 3, 8 and 24
+# in its general kernel (W = 32 alone is compiled).
+HOSTING_GROUPS = 1024
+HOSTING_W, HOSTING_E = 64, 8
+
+
+def hosting_path_forms(dev, k=k_plain, hk=hk_plain):
+    """Every form a hosting member's round gives the two kernels, at
+    N = 1,024 rows: main_path_forms at hosting's widths."""
+    return main_path_forms(dev, k, hk, n=HOSTING_GROUPS, w=HOSTING_W,
+                           e=HOSTING_E)
 
 
 # The node path (batched/node.py): one row (N = 1) per BatchedNode round,

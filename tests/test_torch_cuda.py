@@ -543,6 +543,49 @@ def test_members_capture_side_by_side_in_threads(dev):
     assert {n.rn.captures for n in nodes.values()} == {1}
 
 
+def test_no_graph_is_destroyed_during_a_capture(dev):
+    """A graph's destruction is a CUDA call that a capture in any thread
+    must not meet: the collector is off while a capture runs (so an
+    unreachable owner in a reference cycle is not freed in the middle of
+    it), and an owner dropped in another thread frees its graphs only
+    once the device lock is free. Replays still run the body."""
+    import gc
+    import threading
+
+    from etcd_tpu_torch.batched.graph import RoundGraphs, device_work
+
+    x = torch.zeros(1024, device=dev)
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        x.add_(1)
+
+    assert gc.isenabled()
+    old = RoundGraphs()
+    old.run("k", body)
+    assert old.captures == 1 and seen == [True, False] and gc.isenabled()
+    cycle = [old]
+    cycle.append(cycle)
+    del old
+    new = RoundGraphs()
+    new.run("k", body, times=3)
+    assert seen == [True, False, True, False]
+    box = [new]
+    del new
+    with device_work():
+        t = threading.Thread(target=box.clear)
+        t.start()
+        t.join(0.5)
+        assert t.is_alive()
+    t.join(10)
+    assert not t.is_alive()
+    del cycle
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 4.0))
+
+
 def test_plane_graphed_dispatch_equals_eager(dev):
     """The apply plane's dispatch replayed as a CUDA graph over owned
     buffers against the same dispatch run eagerly on the card, 4,096
@@ -584,3 +627,73 @@ def test_raftexample_members_on_the_card(dev):
     from them (chip_smoke's raftexample phase at 300 puts): equal maps,
     one capture per rawnode."""
     chip_smoke.run_raftexample(dev, puts=300, timeout_s=120)
+
+
+def test_hosting_cluster_on_the_card(dev):
+    """Three MultiRaftMembers of 64 groups on the card in their own
+    threads (chip_smoke's hosting phase at 300 puts): admin reads beside
+    the first captures, every put read back everywhere, linearizable
+    reads, a crash that frees the member's device memory and a restart
+    that catches up, one capture per member, the strict checkers."""
+    chip_smoke.run_hosting(dev, groups=64, puts=300, reads=16)
+
+
+def test_hosting_members_on_cuda_equal_cpu(dev):
+    """CUDA members against CPU members in lockstep (chip_smoke's
+    hosting_parity at 16 groups): equal WAL records, KV, mirrors and
+    health after every step."""
+    chip_smoke.run_hosting_parity(dev, groups=16, steps=160)
+
+
+def test_hosting_reads_beside_a_first_capture(dev, tmp_path):
+    """ROADMAP C8: hosting's reads from other threads (health,
+    conf_snapshot, stats, peer_match, the leader view, deliver_block of
+    an empty block) run in a thread while each member captures its first
+    round: nothing raises, one capture each, and the rounds go on."""
+    import threading
+
+    from etcd_tpu_torch.batched import hosting
+    from etcd_tpu_torch.batched.msgblock import REC_DTYPE, MsgBlock
+    from etcd_tpu_torch.tools.hosting_lockstep import Lockstep, step_clock
+
+    cfg = chip_smoke.chaos_config(16)
+    errors, reads, stop = [], [0], threading.Event()
+    with step_clock(hosting) as clock:
+        c = Lockstep(hosting, str(tmp_path), cfg, 3, 16, device=dev)
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    for m in c.members.values():
+                        m.health()
+                        m.conf_snapshot()
+                        dict(m.stats)
+                        m.rn.peer_match()
+                        int(m.rn.m_view[1].sum())
+                        m.deliver_block(MsgBlock(np.zeros(0, REC_DTYPE)))
+                        reads[0] += 1
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        t = threading.Thread(target=reader)
+        t.start()
+        try:
+            for _ in range(40):
+                c.step()
+                clock.advance(0.1)
+            led = [c.leader(g) is not None for g in range(16)]
+        finally:
+            stop.set()
+            t.join(30)
+            c.stop()
+    assert not errors, errors
+    assert reads[0] > 0
+    assert {m.rn.captures for m in c.members.values()} == {1}
+    assert all(led), led
+
+
+@pytest.mark.parametrize("cell", ["msg_faults_shm", "fsync_failstop",
+                                  "walpipe_crash_window"])
+def test_chaos_cells_on_the_card(dev, cell):
+    """chip_smoke's chaos cells over CUDA members, closed strict."""
+    chip_smoke.run_chaos(dev, cells=[cell])

@@ -141,7 +141,8 @@ def test_port_imports_no_jax():
     """Importing every module of the port (the rawnode, the node, the
     message codec, the raft host pieces, raftexample, the WAL and its
     native library, the apply plane, the hubs, the tracer, the
-    membership store and the wire codec among them), building and
+    membership store, the wire codec, the hosting stack, the shm fabric,
+    the chaos harness and the checkers among them), building and
     loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
@@ -164,7 +165,9 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.obs.fleet", "etcd_tpu_torch.obs.tracer",
           "etcd_tpu_torch.obs.export", "etcd_tpu_torch.obs.merge",
           "etcd_tpu_torch.pkg.failpoint", "etcd_tpu_torch.pkg.errors",
-          "etcd_tpu_torch.transport.codec"):
+          "etcd_tpu_torch.transport.codec", "etcd_tpu_torch.batched.hosting",
+          "etcd_tpu_torch.batched.shmfabric", "etcd_tpu_torch.batched.faults",
+          "etcd_tpu_torch.functional.checker", "etcd_tpu_torch.pkg"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))

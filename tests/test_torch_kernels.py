@@ -347,3 +347,25 @@ def test_kernel_times_forms_of_a_checkout(monkeypatch):
             got, want = (got,), (want,)
         assert all(map(torch.equal, got, want)), f["key"]
         assert f["bytes"] > 0 and f["ops"] > 0
+
+
+def test_kernel_times_hosting_forms(monkeypatch):
+    """The hosting path's forms (a member's rawnode at hosting's default
+    W = 64, E = 8): the quorum at [N, 3] and the ring lookup at K = 1,
+    3, 8 and 24, each equal to its plain form; on CPU tensors, at a
+    small N."""
+    from etcd_tpu_torch.tools import kernel_times as kt
+
+    monkeypatch.setattr(kt, "HOSTING_GROUPS", 16)
+    forms = kt.hosting_path_forms(torch.device("cpu"))
+    assert [f["key"] for f in forms] == [
+        "quorum_commit_vote commit R=3 B=1", "quorum_commit_vote vote R=3 B=1",
+        "quorum_commit_vote both R=3 B=1", "quorum_commit_vote vote R=3 B=3",
+        "term_at_batch K=1 W=64", "term_at_batch K=3 W=64",
+        "term_at_batch K=8 W=64", "term_at_batch K=24 W=64"]
+    for f in forms:
+        got, want = f["call"](), f["plain"]()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        assert all(map(torch.equal, got, want)), f["key"]
+        assert f["bytes"] > 0 and f["ops"] > 0
