@@ -10,7 +10,16 @@ groups: elections, closed-loop rounds with proposals through the
 engine's CUDA graph of one round, commit p50), profiles the graphed
 round beside the eager one, holds graph replays against eager rounds,
 runs the main path again with the telemetry and fleet planes on, holds
-the whole round on CUDA against the same round on the CPU, drives the
+the whole round on CUDA against the same round on the CPU under each of
+the three deliver shapes, drives the bench engine at G=65,536 once per
+deliver shape (the sender scans "lanes" and "merged" and the vectorized
+fold: a seeded loaded schedule with the three compared field for field,
+each shape's kernel forms held against their plain versions on the
+round's own inputs, rate, commit p50, device time, captures, and graph
+replays against eager rounds for both scans), holds the engine on the
+card against the shadow cluster (the port's scalar Raft, replaying each
+shape's delivery order) on the differential schedules at 64 groups,
+drives the
 hosted path (three BatchedRawNode members of G=65,536 groups each, every
 member's round a graph replay, proposals with payloads committed on
 every member), holds hosted members on CUDA against hosted members on
@@ -22,7 +31,7 @@ oracle replay of its committed stream, and a 1,024-row capture restored
 into another member), holds plane-on members on CUDA against the CPU
 and runs a plane dispatch beside another member's capture in a thread,
 drives the raft.Node boundary (three BatchedNodes at
-raftexample's default width: 10,032 puts, a third forwarded, ReadIndex,
+raftexample's default width: 6,032 puts, a third forwarded, ReadIndex,
 a transfer, a voter removed and re-added, a compaction with a MsgSnap
 catch-up), holds CUDA nodes against CPU nodes Ready for Ready, and runs
 raftexample's replicated KV (three members, each in its own threads,
@@ -35,6 +44,7 @@ on the CPU step by step (WAL records, KV, mirrors, health), and runs the
 chaos cells (message faults over the in-process, TCP and shm fabrics, a
 failpoint crash, a torn WAL tail, an fsync fail-stop, a WAL-pipeline
 crash window) over CUDA members, each closed by the strict checkers,
+and the message-fault cell again under each sender scan,
 runs the server as three worker processes on the card over TCP (the
 port's hosted_bench at its defaults with 9,000 puts, its kill -9 and
 restart; then the reference's three-process e2e flow with tracing, the
@@ -49,17 +59,20 @@ Line protocol (stdout): one line per phase (the kernels phase times
 every main-path and node-path form warm and L2-cold; the slice phase
 counts launches per kernel and per form), a line with each phase's wall
 seconds, then a JSON line {"kernels": [...]} with every kernel's
-launches on each path (the engine's, the hosted one, the plane-on
-hosted one, the node's, raftexample's, the hosting server's and its
-worker processes', each counted from 0 around its run), at its most
-launched engine form its device time warm and cold, plain-version time
-and bound, and every form with its launches per engine, rawnode, node
-and hosting member round (in process and in a worker); then the card's name and power limit as nvidia-smi reports
-them; then, last, {"ok": true, "device": {...}}.
+launches on each path (the engine's, each deliver shape's, the hosted
+one, the plane-on hosted one, the node's, raftexample's, the hosting
+server's and its worker processes', each counted from 0 around its
+run), at its most launched engine form its device time warm and cold,
+plain-version time and bound, and every form with its launches per
+engine round (under each deliver shape), rawnode, node and hosting
+member round (in process and in a worker); then the card's name and
+power limit as nvidia-smi reports them; then, last,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -195,7 +208,9 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
                            {"hosting": "hosting",
                             "hosting_proc": "hosting_proc"}
                            if v["n"] == kt.HOSTING_GROUPS else
-                           {"engine": "slice", "rawnode": "hosted"})
+                           {"engine": "slice", "rawnode": "hosted",
+                            "engine_lanes": "shapes_lanes",
+                            "engine_merged": "shapes_merged"})
             forms.append({
                 **{k: v[k] for k in ("form", "n", "ms", "cold_ms",
                                      "plain_ms", "bound_ms", "bound_by")},
@@ -535,66 +550,268 @@ def run_planes(dev, base_device_ms: float) -> None:
 # -- phase: parity (CUDA round vs CPU round) -----------------------------------
 
 
-def run_parity(dev, plain_dev=torch.device("cpu")) -> None:
+SHAPES = ("lanes", "merged", "vectorized")
+# Rounds of the parity schedule per deliver shape: the sender scans' eager
+# CPU round is ~3x the vectorized one's, so they stop 4 rounds into the
+# schedule's partition window (rounds 20-35).
+PARITY_ROUNDS = {"lanes": 24, "merged": 24, "vectorized": 60}
+
+
+def run_parity(dev, plain_dev=torch.device("cpu"), shapes=SHAPES) -> None:
     """The same schedule through the round on `dev` (on CUDA: the
-    kernels) and on `plain_dev` (the CPU: the plain forms); every state
-    field and the outbox are equal after every round."""
+    kernels) and on `plain_dev` (the CPU: the plain forms), for each
+    deliver shape; every state field and the outbox are equal after
+    every round."""
+    for shape in shapes:
+        for label, base in parity_configs(256).items():
+            parity_run(base._replace(deliver_shape=shape), label, dev,
+                       plain_dev, PARITY_ROUNDS[shape])
+
+
+def parity_run(cfg, label: str, dev, plain_dev, rounds: int) -> None:
+    """One config of the parity phase (run_parity)."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
     from etcd_tpu_torch.batched.state import init_state
     from etcd_tpu_torch.batched.step import (
         NUM_KINDS, empty_msgs, make_step_round, route)
 
-    groups = 256
-    configs = parity_configs(groups)
     rng = torch.Generator().manual_seed(SEED)
-    for label, cfg in configs.items():
-        n = cfg.num_instances
-        sides = {}
-        for side, d in (("kernel", dev), ("plain", plain_dev)):
-            sides[side] = [
-                init_state(cfg, device=d),
-                empty_msgs((n, cfg.num_replicas, NUM_KINDS),
-                           cfg.max_ents_per_msg, device=d),
-                make_step_round(cfg, device=d)]
-        rounds = 60
+    n = cfg.num_instances
+    sides = {}
+    for side, d in (("kernel", dev), ("plain", plain_dev)):
+        sides[side] = [
+            init_state(cfg, device=d),
+            empty_msgs((n, cfg.num_replicas, NUM_KINDS),
+                       cfg.max_ents_per_msg, device=d),
+            make_step_round(cfg, device=d)]
+    hk.reset_launches()
+    for rnd in range(rounds):
+        # A seeded schedule: early campaigns, steady proposals on every
+        # slot (leaders accept), a rolling partition, reads and
+        # transfers.
+        camp = torch.rand(n, generator=rng) < (0.3 if rnd < 3 else 0.01)
+        props = torch.randint(0, cfg.max_props_per_round + 1, (n,),
+                              generator=rng, dtype=torch.int32)
+        iso = torch.zeros(n, dtype=torch.bool)
+        if 20 <= rnd < 35:
+            iso[(rnd % R)::R * 7] = True
+        read = torch.rand(n, generator=rng) < 0.05
+        tr = torch.where(torch.rand(n, generator=rng) < 0.02,
+                         torch.randint(1, R + 1, (n,), generator=rng,
+                                       dtype=torch.int32), 0)
+        tick = torch.full((n,), rnd % 2 == 0 or label != "bench")
+        outs = {}
+        for name, side in sides.items():
+            st, inbox, step = side
+            to = lambda x: x.to(st.term.device)  # noqa: E731
+            st, out = step(st, inbox, to(tick), to(camp), to(props),
+                           to(iso), to(tr), to(read))
+            side[0], side[1] = st, route(cfg, out)
+            outs[name] = (st, out)
+        for part in (0, 1):
+            a, b = outs["kernel"][part], outs["plain"][part]
+            for f in a._fields:
+                x, y = getattr(a, f).cpu(), getattr(b, f)
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise AssertionError(
+                        f"parity {label} {cfg.deliver_shape} round {rnd}: "
+                        f"field {f} of "
+                        f"{'state' if part == 0 else 'outbox'} differs")
+    st = sides["plain"][0]
+    log("parity", config=label, shape=cfg.deliver_shape,
+        groups=cfg.num_groups, rounds=rounds,
+        equal=True, launches=dict(hk.LAUNCHES),
+        form_launches=dict(hk.FORM_LAUNCHES),
+        leaders=int((st.role == 2).sum()),
+        max_commit=int(st.commit.max()), max_term=int(st.term.max()))
+
+
+# -- phase: shapes (the three deliver shapes at full width) ----------------------
+
+# Loaded rounds of the shapes schedule after the election: (rounds, tick)
+# per closed-loop call, the three shapes compared after each call.
+SHAPE_BLOCKS = ((8, True), (8, False), (8, True), (8, True), (8, False))
+
+
+def assert_shapes_agree(engines: dict, context: str) -> None:
+    """Every STATE_FIELDS field equal across the shapes' engines."""
+    from etcd_tpu_torch.tools.shadow_lockstep import STATE_FIELDS
+
+    (ref_shape, (ref, _)), *rest = engines.items()
+    for shape, (eng, _) in rest:
+        for f in STATE_FIELDS:
+            if not torch.equal(getattr(eng.state, f),
+                               getattr(ref.state, f)):
+                raise AssertionError(f"shapes {context}: {shape} differs "
+                                     f"from {ref_shape} on {f}")
+
+
+def round_forms_equal_plain(eng, props) -> dict:
+    """One eager round of `eng` with each kernel form's first launch
+    held against its plain version on the same (cloned) inputs; returns
+    each form's largest |kernel - plain| (held at 0)."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+
+    plain = {hk.quorum_commit: hk.quorum_commit_ref,
+             hk.quorum_vote: hk.quorum_vote_ref,
+             hk.term_at_batch: hk.term_at_batch_ref}
+    return {form: assert_equal(f"{eng.cfg.deliver_shape} {form}",
+                               fn(*args), plain[fn](*args))
+            for form, (fn, args) in round_forms(eng, props).items()}
+
+
+def run_shapes(dev, groups: int = MAIN_GROUPS) -> dict:
+    """The bench engine at `groups` built once per deliver shape, each
+    replayed as a CUDA graph: a seeded loaded schedule with the three
+    shapes compared after every closed-loop call, each shape's kernel
+    forms held against the plain versions on the round's inputs, then
+    per shape its rate, commit p50, device time and kernels a round,
+    captures and graph pool. Each shape's launches are counted from 0
+    around its own calls. Returns path -> launches for the kernels
+    line."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.tools.benchlib import (
+        make_bench_engine, measure_commit_p50, measure_rate)
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        # Graphs of earlier phases' engines are freed now, not in the
+        # middle of this phase's pool readings.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    engines, pools = {}, {}
+    for shape in SHAPES:
+        t0 = time.perf_counter()
+        before = graph_pool_bytes() if cuda else 0
+        # The setup's election rounds capture the tick=False graph.
+        engines[shape] = make_bench_engine(groups, device=dev,
+                                           deliver_shape=shape)
+        pools[shape] = {"setup_s": time.perf_counter() - t0,
+                        "bytes": (graph_pool_bytes() or 0) - (before or 0)
+                        if cuda else 0}
+    n = groups * R
+    gen = torch.Generator().manual_seed(SEED)
+    launches = {s: {k: 0 for k in hk.LAUNCHES} for s in SHAPES}
+    forms = {s: {} for s in SHAPES}
+    rounds = dict.fromkeys(SHAPES, 0)
+
+    def counted(shape, run):
         hk.reset_launches()
-        for rnd in range(rounds):
-            # A seeded schedule: early campaigns, steady proposals on
-            # every slot (leaders accept), a rolling partition, reads and
-            # transfers.
-            camp = torch.rand(n, generator=rng) < (0.3 if rnd < 3 else 0.01)
-            props = torch.randint(0, cfg.max_props_per_round + 1, (n,),
-                                  generator=rng, dtype=torch.int32)
-            iso = torch.zeros(n, dtype=torch.bool)
-            if 20 <= rnd < 35:
-                iso[(rnd % R)::R * 7] = True
-            read = torch.rand(n, generator=rng) < 0.05
-            tr = torch.where(torch.rand(n, generator=rng) < 0.02,
-                             torch.randint(1, R + 1, (n,), generator=rng,
-                                           dtype=torch.int32), 0)
-            tick = torch.full((n,), rnd % 2 == 0 or label != "bench")
-            outs = {}
-            for name, side in sides.items():
-                st, inbox, step = side
-                to = lambda x: x.to(st.term.device)  # noqa: E731
-                st, out = step(st, inbox, to(tick), to(camp), to(props),
-                               to(iso), to(tr), to(read))
-                side[0], side[1] = st, route(cfg, out)
-                outs[name] = (st, out)
-            for part in (0, 1):
-                a, b = outs["kernel"][part], outs["plain"][part]
-                for f in a._fields:
-                    x, y = getattr(a, f).cpu(), getattr(b, f)
-                    if x.dtype != y.dtype or not torch.equal(x, y):
-                        raise AssertionError(
-                            f"parity {label} round {rnd}: field {f} of "
-                            f"{'state' if part == 0 else 'outbox'} differs")
-        st = sides["plain"][0]
-        log("parity", config=label, groups=groups, rounds=rounds,
-            equal=True, launches=dict(hk.LAUNCHES),
-            form_launches=dict(hk.FORM_LAUNCHES),
-            leaders=int((st.role == 2).sum()),
-            max_commit=int(st.commit.max()), max_term=int(st.term.max()))
+        before = graph_pool_bytes() if cuda else None
+        run()
+        if cuda:
+            torch.cuda.synchronize()
+            pools[shape]["bytes"] += (graph_pool_bytes() or 0) - (before or 0)
+        for k, v in hk.LAUNCHES.items():
+            launches[shape][k] += v
+        for k, v in hk.FORM_LAUNCHES.items():
+            forms[shape][k] = forms[shape].get(k, 0) + v
+
+    for b, (k, tick) in enumerate(SHAPE_BLOCKS):
+        props = torch.randint(0, 3, (n,), generator=gen,
+                              dtype=torch.int32).to(dev)
+        for shape, (eng, _) in engines.items():
+            counted(shape, lambda: eng.run_rounds(k, tick=tick,
+                                                  propose_n=props))
+            rounds[shape] += k
+        assert_shapes_agree(engines, f"block {b}")
+    errs = {}
+    for shape, (eng, props) in engines.items():
+        errs[shape] = round_forms_equal_plain(eng, props)
+    assert_shapes_agree(engines, "after the kernel checks")
+    for shape, count in launches.items():
+        for name, v in count.items():
+            if v == 0:
+                raise AssertionError(f"shapes: {name} never launched under "
+                                     f"{shape}")
+    out = {}
+    for shape, (eng, props) in engines.items():
+        rates = [measure_rate(eng, props, rounds_per_call=8, calls=4)
+                 for _ in range(3)]
+        p50 = measure_commit_p50(eng)
+        prof = (profile_rounds(
+            lambda k: eng.run_rounds(k, tick=True, propose_n=props), 8)
+            if cuda else {})
+        if cuda and eng.captures != 2:
+            raise AssertionError(f"shapes {shape}: {eng.captures} captures")
+        log("shapes", shape=shape, groups=groups,
+            rounds_schedule=rounds[shape],
+            group_rounds_per_s=statistics.median(rates),
+            group_rounds_per_s_runs=rates, commit_p50_ms=p50[0],
+            commit_p50_rounds=p50[1],
+            device_ms_per_round=prof.get("device_ms_per_round"),
+            wall_ms_per_round=prof.get("wall_ms_per_round"),
+            device_kernels_per_round=prof.get("device_kernels_per_round"),
+            device_busy_share=prof.get("device_busy_share"),
+            hopper_kernels_in_graph=prof.get("hopper_kernels"),
+            top_kernels=prof.get("top_kernels", [])[:6],
+            captures=eng.capture_stats, graph_pool_bytes=pools[shape],
+            launches=launches[shape],
+            launches_per_round={k: v / rounds[shape]
+                                for k, v in launches[shape].items()},
+            form_launches_per_round={k: v / rounds[shape]
+                                     for k, v in forms[shape].items()},
+            kernel_vs_plain_max_abs_err=errs[shape],
+            min_commit=int(eng.commits().min()))
+        out[f"shapes_{shape}"] = {"launches": launches[shape],
+                                  "forms": forms[shape],
+                                  "rounds": rounds[shape]}
+    assert_shapes_agree(engines, "after the measurements")
+    del engines
+    if cuda:
+        torch.cuda.empty_cache()
+    # Graph replays against eager rounds for both scans, at the parity
+    # config with timer elections, pre-vote, check-quorum and both planes
+    # (the bench config's graphs ran above against the vectorized shape).
+    cfg = parity_configs(256, planes=True)["prevote_cq"]
+    for shape in SHAPES[:2]:
+        res = graph_vs_eager(cfg._replace(deliver_shape=shape), dev, SEED)
+        if cuda and res["captures"] != 2:
+            raise AssertionError(f"graph {shape}: {res['captures']} "
+                                 "captures")
+        log("shapes_graph", shape=shape, config="prevote_cq", groups=256,
+            equal=True, **res)
+    return out
+
+
+# -- phase: shadow (every shape against the port's scalar Raft) ------------------
+
+
+def run_shadow(dev, groups: int = 64) -> None:
+    """The engine on `dev` against the shadow cluster (the port's scalar
+    raft core, replaying the engine's deliver order) for each shape, at
+    test_differential's config and `groups` groups, on
+    test_differential's and test_deliver_shapes' schedules widened to
+    `groups`: (term, role, lead, commit, last) of every instance after
+    every round, every log at the end."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.tools.shadow_lockstep import (
+        SCHEDULES, Pair, diff_config, widen)
+
+    for shape in SHAPES:
+        t0 = time.perf_counter()
+        hk.reset_launches()
+        cells = {}
+        for name, schedule in SCHEDULES.items():
+            pair = Pair(diff_config(groups, shape), device=dev)
+            pair.run(widen(schedule, groups))
+            pair.compare_logs()
+            st = pair.eng.state
+            cells[name] = {"rounds": pair.rounds,
+                           "leaders": int((st.role == 2).sum()),
+                           "max_commit": int(st.commit.max()),
+                           "max_term": int(st.term.max())}
+        log("shadow", shape=shape, groups=groups, equal=True, cells=cells,
+            launches=dict(hk.LAUNCHES), seconds=time.perf_counter() - t0)
+
+
+def run_chaos_shapes(dev) -> None:
+    """The message-fault chaos cell over CUDA members with each sender
+    scan shape, strict."""
+    for shape in SHAPES[:2]:
+        run_chaos(dev, cells=["msg_faults_inproc"], shape=shape,
+                  phase="chaos_shapes")
 
 
 # -- phase: hosted (the rawnode members at full size) ---------------------------
@@ -602,7 +819,7 @@ def run_parity(dev, plain_dev=torch.device("cpu")) -> None:
 MEMBERS = (1, 2, 3)
 PAYLOAD_BYTES = 64
 KV_KEYS = 32  # the key space of Harness.propose_kv
-LOAD_ROUNDS = 4
+LOAD_ROUNDS = 2
 PROPS_PER_ROUND = 2  # proposals per group per load round
 
 
@@ -1077,7 +1294,7 @@ PLANE_POOL = 48  # keys per ordinary row (fewer than C = 256 slots)
 PLANE_OVERFLOW_ROWS = 8  # rows that put fresh keys in every lane
 PLANE_WATCH_ROWS = 64
 PLANE_SAMPLE_ROWS = 256  # other rows held against the oracle
-PLANE_LOAD_ROUNDS = 3
+PLANE_LOAD_ROUNDS = 2
 PLANE_CAPTURE_ROWS = 1024
 
 
@@ -1620,11 +1837,11 @@ def run_plane_parity(dev, plain_dev=torch.device("cpu")) -> None:
 # BatchedNode's): R = 3, a W = 32,768 term ring, election 10 ticks,
 # heartbeat 1, E = 8, P = 8, pre-vote and check-quorum.
 NODE_WINDOW = 32768
-NODE_PUTS = 10_000
+NODE_PUTS = 6_000
 PUTS_PER_ROUND = 8  # P: what a leader appends in one round
 # Pump rounds of each load block of node_schedule: at 8 puts a round,
-# the node phase makes 10,032 puts, node_parity 352.
-NODE_LOAD = (400, 300, 100, 150, 300)
+# the node phase makes 6,032 puts, node_parity 352.
+NODE_LOAD = (240, 180, 60, 90, 180)
 PARITY_LOAD = (12, 10, 6, 8, 4)
 
 
@@ -1934,7 +2151,7 @@ def check_node_set(ns: NodeSet) -> int:
 
 def run_node(dev) -> dict:
     """Three BatchedNodes on the card at raftexample's default width,
-    the node schedule at NODE_LOAD (10,032 puts). Returns the launches
+    the node schedule at NODE_LOAD (6,032 puts). Returns the launches
     and form launches of its run and its node rounds."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
 
@@ -2558,6 +2775,12 @@ def run_hosting(dev, groups: int | None = None, puts: int = HOSTING_PUTS,
         gone = weakref.ref(old.rn)
         old = None
         gc.collect()
+        # A survivor's send in flight still holds the crashed member (the
+        # router's target snapshot, InProcRouter.send) until it returns.
+        deadline = time.perf_counter() + 10.0
+        while gone() is not None and time.perf_counter() < deadline:
+            time.sleep(0.05)
+            gc.collect()
         alloc_freed = alloc_live - allocated()
         if gone() is not None:
             held = [type(r).__name__ for r in gc.get_referrers(gone())]
@@ -2715,16 +2938,19 @@ def chaos_lead_by_transfer(h, mid: int, groups: int) -> int:
     raise AssertionError(f"chaos: member {mid} never led a group")
 
 
-def chaos_cells(dev) -> dict:
+def chaos_cells(dev, shape=None) -> dict:
     """The chaos cells, each a fresh ChaosHarness of CUDA members at
     test_chaos.CFG closed by run_invariant_checks (strict: KV-hash
     parity, committed-never-lost, one leader per term) with
-    invariant_trips() == 0: name -> episode(tmp_dir)."""
+    invariant_trips() == 0: name -> episode(tmp_dir). `shape` names a
+    deliver shape (default: the config's)."""
     from etcd_tpu_torch.batched.faults import (
         ChaosHarness, FaultSpec, LeaderObserver, run_invariant_checks)
     from etcd_tpu_torch.pkg import failpoint
 
     cfg = chaos_config()
+    if shape is not None:
+        cfg = cfg._replace(deliver_shape=shape)
     g = cfg.num_groups
     msg_faults = FaultSpec(drop=0.05, dup=0.05, delay=0.08,
                            delay_max_s=0.04, reorder=0.2)
@@ -2819,14 +3045,15 @@ def chaos_cells(dev) -> dict:
     }
 
 
-def run_chaos(dev, cells=None) -> dict:
+def run_chaos(dev, cells=None, shape=None, phase="chaos") -> dict:
     """Every chaos cell (or those named in `cells`) on `dev`, each in a
-    temp directory of its own."""
+    temp directory of its own, with the deliver shape `shape` (default:
+    the config's); the line is logged as `phase`."""
     import shutil
     import tempfile
 
     results = {}
-    for name, run in chaos_cells(dev).items():
+    for name, run in chaos_cells(dev, shape).items():
         if cells is not None and name not in cells:
             continue
         tmp = tempfile.mkdtemp(prefix=f"chip-smoke-chaos-{name}-")
@@ -2838,7 +3065,8 @@ def run_chaos(dev, cells=None) -> dict:
         if dev.type == "cuda" and set(out["captures"]) != {1}:
             raise AssertionError(f"chaos {name}: captures {out['captures']}")
         results[name] = {**out, "seconds": time.perf_counter() - t0}
-    log("chaos", strict=True, invariant_trips=0, cells=results,
+    log(phase, shape=shape or chaos_config().resolved().deliver_shape,
+        strict=True, invariant_trips=0, cells=results,
         card=smi("name,power.limit") if dev.type == "cuda" else str(dev))
     return results
 
@@ -3182,6 +3410,8 @@ def main() -> int:
     timed("graph", run_graph, dev)
     timed("planes", run_planes, dev, base_device_ms)
     timed("parity", run_parity, dev)
+    paths.update(timed("shapes", run_shapes, dev))
+    timed("shadow", run_shadow, dev)
     paths["hosted"] = timed("hosted", run_hosted, dev)
     timed("hosted_parity", run_hosted_parity, dev)
     paths["plane"] = timed("plane", run_plane, dev)
@@ -3193,6 +3423,7 @@ def main() -> int:
     paths["hosting"] = timed("hosting", run_hosting, dev)
     timed("hosting_parity", run_hosting_parity, dev)
     timed("chaos", run_chaos, dev)
+    timed("chaos_shapes", run_chaos_shapes, dev)
     paths["hosting_proc"] = timed("hosting_proc", run_hosting_proc, dev)
     timed("rebalance", run_rebalance, dev)
     log("phases", seconds=phase_s)

@@ -136,11 +136,12 @@ def term_at_plain(log_term: torch.Tensor, snap_index: torch.Tensor,
 # - term_at: st.log_term, st.snap_index, st.snap_term, st.last and [N],
 #   [N, R], [N, E] or [N, R, E] indexes that the round computes (for the
 #   request handlers, fields of the gathered lane winner, not the
-#   strided lane view).
+#   strided lane view; under the sender scans, a sender's message read
+#   from the round's sender-major copy of the inbox, step._sender_major).
 # tests/test_torch_kernels.py holds every site's arguments contiguous
-# over a seeded schedule of both parity configs on the CPU, and the
-# parity phase of chip_smoke.py runs those configs on the card, where a
-# strided argument would raise.
+# over a seeded schedule of both parity configs, under each deliver
+# shape, on the CPU, and the parity phase of chip_smoke.py runs those
+# configs and shapes on the card, where a strided argument would raise.
 
 
 def joint_committed(match: torch.Tensor, voter: torch.Tensor,

@@ -33,9 +33,9 @@ I8 = torch.int8
 # config exceeding this would silently wrap the count on the wire.
 MAX_WIRE_ENTS = 255
 
-# The deliver shapes a config may name (BatchedConfig.deliver_shape).
-# This package runs only "vectorized"; make_step_round refuses the two
-# sender-scan shapes.
+# The deliver shapes a config may name (BatchedConfig.deliver_shape):
+# the sender scans "lanes" and "merged" and the scan-free "vectorized"
+# fold (step.py _deliver_all).
 DELIVER_SHAPES = ("lanes", "merged", "vectorized")
 
 
@@ -80,9 +80,9 @@ class BatchedConfig(NamedTuple):
     # The PyTorch round always runs instance-major; the field is kept so
     # configs stay field-equal across the two packages.
     lanes_minor: bool = False
-    # How one instance's [R, K] inbox is folded into state. This
-    # package implements "vectorized" (no sender scan); "auto" resolves
-    # to it.
+    # How one instance's [R, K] inbox is folded into state: "lanes",
+    # "merged" or "vectorized" (step.py _deliver_all); "auto" resolves
+    # to default_deliver_shape().
     deliver_shape: str = "auto"
     # Store the bounded hot lanes (NARROW_DTYPES) in int8/int16 between
     # rounds; the round widens them to int32 at entry and narrows at

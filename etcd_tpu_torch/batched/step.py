@@ -1,21 +1,22 @@
 """The batched round: branch-free message handlers over the instance
 axis, with an all-device message router, in PyTorch.
 
-Ports ``etcd_tpu/batched/step.py`` with the ``"vectorized"`` deliver
-shape. The JAX module writes each handler for one instance and maps it
-with ``jax.vmap``; here every function takes the whole batch with the
-instance axis first: a per-instance scalar is ``[N]``, a per-peer row
-``[N, R]``, one lane of the inbox ``[N, R]`` per field (``[N, R, E]``
-for entry terms). Semantics mirror the single-group oracle (ref:
-raft/raft.go Step/stepLeader/stepCandidate/stepFollower).
+Ports ``etcd_tpu/batched/step.py`` with its three deliver shapes: the
+scan-free ``"vectorized"`` fold and the sender scans ``"lanes"`` and
+``"merged"``. The JAX module writes each handler for one instance and
+maps it with ``jax.vmap``; here every function takes the whole batch
+with the instance axis first: a per-instance scalar is ``[N]``, a
+per-peer row ``[N, R]``, one lane of the inbox ``[N, R]`` per field
+(``[N, R, E]`` for entry terms). Semantics mirror the single-group
+oracle (ref: raft/raft.go Step/stepLeader/stepCandidate/stepFollower).
 
 Network model: per round each replica sends at most one message of each
 KIND to each peer, so an inbox is a dense ``[N, R, K]`` slot array and
 routing between the instances of a group is one transpose of the
 (sender, target) axes. A round is:
 
-    deliver (the scan-free vectorized fold) → tick → control → propose
-    → emit → route
+    deliver (cfg.deliver_shape) → tick → control → propose → emit
+    → route
 
 With ``cfg.telemetry`` / ``cfg.fleet_summary`` the round also emits
 the telemetry frame (per-instance counters and invariant bits) and the
@@ -196,6 +197,12 @@ def _choose(cond: torch.Tensor, a: int, b: int) -> torch.Tensor:
                       device=cond.device).masked_fill(cond, a)
 
 
+def _pick(vec: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """vec[n, s] of an int32 row for a one-hot mask `at` [N, R]; 0 when
+    `at` is empty."""
+    return torch.where(at, vec, 0).sum(-1, dtype=I32)
+
+
 def _pick_b(vec: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
     """vec[n, s] of a bool row for a one-hot mask `at` [N, R]; False
     when `at` is empty."""
@@ -314,6 +321,17 @@ def _record_own_vote_and_tally(st: BatchedState, ids: Ids):
     return st, joint_vote_result(votes, st.voter, st.voter_out, st.in_joint)
 
 
+def _record_vote_and_tally(st: BatchedState, ids: Ids,
+                           from_slot: torch.Tensor, granted: torch.Tensor):
+    """ref: tracker.go RecordVote (setdefault) of sender `from_slot`'s
+    vote [N] + TallyVotes."""
+    at = ids.peers == _col(from_slot)
+    votes = torch.where(at & (st.votes == -1), _col(granted.to(I32)),
+                        st.votes)
+    st = st._replace(votes=votes)
+    return st, joint_vote_result(votes, st.voter, st.voter_out, st.in_joint)
+
+
 def _campaign(cfg: BatchedConfig, st: BatchedState, ids: Ids, pre: bool,
               transfer: bool = False) -> BatchedState:
     """ref: raft.go:785-835; `pre`/`transfer` are static (config.pre_vote;
@@ -400,6 +418,53 @@ def _leader_traffic_prelude(cfg, ids, st1, m, from_slot):
 def _no_resp(cfg: BatchedConfig, like: torch.Tensor) -> MsgSlots:
     return empty_msgs(tuple(like.shape), cfg.max_ents_per_msg,
                       device=like.device)
+
+
+# -- lane handlers: each processes ONE inbox lane's message from one
+# sender for every instance, implementing only the types that can land
+# in that lane (ref: raft.go:991-1473 step* dispatch). The request
+# handlers return (state, response); the response handlers the state.
+
+
+def _lane_vote(cfg: BatchedConfig, ids: Ids, st: BatchedState, m: MsgSlots,
+               from_slot):
+    """Lane KIND_VOTE: T_VOTE / T_PREVOTE requests (ref: raft.go:930-978)."""
+    no_resp = _no_resp(cfg, st.term)
+    st1, dead, lower = _term_gate(cfg, ids, st, m, from_slot)
+
+    last_term = _ta(st1, st1.last)
+    can_vote = (
+        (st1.vote == from_slot + 1)
+        | ((st1.vote == 0) & (st1.lead == 0))
+        | ((m.type == T_PREVOTE) & (m.term > st1.term))
+    )
+    up_to_date = (m.log_term > last_term) | (
+        (m.log_term == last_term) & (m.index >= st1.last))
+    # Durability-fenced instances grant nothing (vote or pre-vote).
+    grant = can_vote & up_to_date & ~st1.fenced
+    vote_resp = no_resp._replace(
+        valid=torch.ones_like(no_resp.valid),
+        type=_choose(m.type == T_VOTE, T_VOTE_RESP, T_PREVOTE_RESP),
+        term=torch.where(grant, m.term, st1.term),
+        reject=~grant,
+    )
+    record_real = grant & (m.type == T_VOTE)
+    st_vote = st1._replace(
+        election_elapsed=torch.where(record_real, 0, st1.election_elapsed),
+        vote=torch.where(record_real, from_slot + 1, st1.vote),
+    )
+
+    # Stale pre-vote: reject with our term (deposes the sender).
+    stale_prevote = lower & (m.type == T_PREVOTE)
+    resp_stale = no_resp._replace(
+        valid=stale_prevote,
+        type=torch.full_like(no_resp.type, T_PREVOTE_RESP),
+        term=st.term,
+        reject=torch.ones_like(no_resp.reject),
+    )
+    st_out = _sel(dead | lower, st, st_vote)
+    resp = _sel(dead, no_resp, _sel(lower, resp_stale, vote_resp))
+    return st_out, resp
 
 
 def _lane_app(cfg: BatchedConfig, ids: Ids, st: BatchedState, m: MsgSlots,
@@ -536,6 +601,168 @@ def _handle_snapshot(cfg: BatchedConfig, st: BatchedState, m: MsgSlots):
         term=st.term,
     )
     return st_out, resp
+
+
+def _lane_vote_resp(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                    m: MsgSlots, from_slot) -> BatchedState:
+    """Lane KIND_VOTE_RESP: T_VOTE_RESP / T_PREVOTE_RESP
+    (ref: raft.go:1399-1414)."""
+    st1, dead, lower = _term_gate(cfg, ids, st, m, from_slot)
+    is_cand = (st1.role == CANDIDATE) | (st1.role == PRECANDIDATE)
+    my_resp_type = _choose(st1.role == PRECANDIDATE, T_PREVOTE_RESP,
+                           T_VOTE_RESP)
+    st_vr = _candidate_vote_resp(cfg, ids, st1, m, from_slot)
+    st_live = _sel(is_cand & (m.type == my_resp_type), st_vr, st1)
+    return _sel(dead | lower, st, st_live)
+
+
+def _lane_app_resp(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                   m: MsgSlots, from_slot) -> BatchedState:
+    """Lane KIND_APP_RESP: T_APP_RESP (ref: raft.go:1106-1283)."""
+    st1, dead, lower = _term_gate(cfg, ids, st, m, from_slot)
+    is_leader = st1.role == LEADER
+    st_ar = _leader_app_resp(cfg, ids, st1, m, from_slot)
+    st_live = _sel(is_leader & (m.type == T_APP_RESP), st_ar, st1)
+    return _sel(dead | lower, st, st_live)
+
+
+def _lane_hb_resp(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                  m: MsgSlots, from_slot) -> BatchedState:
+    """Lane KIND_HB_RESP: T_HB_RESP, plus T_APP_RESP stale-leader nudges
+    that route back in this lane (ref: raft.go:1284-1309)."""
+    st1, dead, lower = _term_gate(cfg, ids, st, m, from_slot)
+    is_leader = st1.role == LEADER
+    st_hr = _leader_hb_resp(cfg, ids, st1, m, from_slot)
+    st_ar = _leader_app_resp(cfg, ids, st1, m, from_slot)
+    st_live = _sel(is_leader & (m.type == T_HB_RESP), st_hr, st1)
+    st_live = _sel(is_leader & (m.type == T_APP_RESP), st_ar, st_live)
+    return _sel(dead | lower, st, st_live)
+
+
+def _leader_app_resp(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                     m: MsgSlots, s: torch.Tensor) -> BatchedState:
+    """Leader MsgAppResp handling from sender `s` [N]
+    (ref: raft.go:1106-1283)."""
+    at_s = ids.peers == _col(s)
+    # Progress exists for voters and learners.
+    prog_ok = _pick_b(_repl_targets(st), at_s)
+
+    st = st._replace(recent_active=st.recent_active | at_s)
+
+    # --- rejected: move next back using the hint (ref: raft.go:1130-1236) ---
+    hint = torch.where(
+        m.log_term > 0,
+        find_conflict_by_term(st.log_term, st.snap_index, st.snap_term,
+                              st.last, m.reject_hint, m.log_term),
+        m.reject_hint)
+    match_s, next_s = _pick(st.match, at_s), _pick(st.next, at_s)
+    in_repl = _pick(st.pr_state, at_s) == REPLICATE
+    stale_rej = torch.where(in_repl, m.index <= match_s,
+                            next_s - 1 != m.index)
+    dec_next = torch.where(in_repl, match_s + 1,
+                           torch.minimum(m.index, hint + 1).clamp(min=1))
+    # On a genuine rejection a replicating peer drops to probing. A
+    # follower that rejects below our recorded match has lost entries it
+    # once acked (a torn WAL tail): lowering match is always safe, so take
+    # its evidence and let probing re-heal (the stale-high match repair).
+    match_repair = at_s & _col(dec_next <= match_s)
+    rej_repl = at_s & _col(in_repl)
+    st_rej = st._replace(
+        next=torch.where(at_s, _col(dec_next), st.next),
+        match=torch.where(match_repair, _col(dec_next - 1), st.match),
+        probe_sent=st.probe_sent & ~at_s,
+        pr_state=torch.where(rej_repl, PROBE, st.pr_state),
+        pending_snapshot=torch.where(rej_repl, 0, st.pending_snapshot),
+        inflight=torch.where(rej_repl, 0, st.inflight),
+        send_append=st.send_append | (at_s & _col(~stale_rej)),
+    )
+    st_rej = _sel(stale_rej, st, st_rej)
+
+    # --- accepted: MaybeUpdate + state transitions + commit ---
+    old_paused = _pick_b(_paused(cfg, st), at_s)
+    updated = match_s < m.index
+    match = torch.where(at_s, torch.maximum(st.match, _col(m.index)),
+                        st.match)
+    nxt = torch.where(at_s, torch.maximum(st.next, _col(m.index) + 1),
+                      st.next)
+    st_acc = st._replace(
+        match=match,
+        next=nxt,
+        probe_sent=st.probe_sent & ~(at_s & _col(updated)),
+    )
+    pr_state_s = _pick(st.pr_state, at_s)
+    new_match_s = torch.maximum(match_s, m.index)
+    was_probe = pr_state_s == PROBE
+    was_snap = (pr_state_s == SNAPSHOT) & (
+        new_match_s >= _pick(st.pending_snapshot, at_s))
+    to_repl = at_s & _col(updated & (was_probe | was_snap))
+    st_acc = st_acc._replace(
+        pr_state=torch.where(to_repl, REPLICATE, st_acc.pr_state),
+        pending_snapshot=torch.where(to_repl, 0, st_acc.pending_snapshot),
+        # count+watermark degeneration of FreeLE
+        inflight=torch.where(at_s & _col(updated), 0, st_acc.inflight),
+        next=torch.where(to_repl, _col(new_match_s) + 1, nxt),
+    )
+    committed_before = st_acc.commit
+    st_acc = _maybe_commit(st_acc)
+    advanced = st_acc.commit > committed_before
+    # bcastAppend on commit advance; resend to a previously-paused peer;
+    # keep draining while entries remain (ref: raft.go:1259-1276).
+    more = st_acc.last >= _pick(st_acc.next, at_s)
+    st_acc = st_acc._replace(send_append=torch.where(
+        _col(advanced), st_acc.send_append | _repl_targets(st_acc),
+        st_acc.send_append | (at_s & _col(old_paused | more))))
+    st_acc = _sel(updated, st_acc, st)
+
+    out = _sel(m.reject, st_rej, st_acc)
+    return _sel(prog_ok, out, st)
+
+
+def _leader_hb_resp(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                    m: MsgSlots, s: torch.Tensor) -> BatchedState:
+    """ref: raft.go:1284-1309, incl. the ReadIndex ack path
+    (read_only.go:68 recvAck + :81 advance)."""
+    at_s = ids.peers == _col(s)
+    full = st.inflight >= cfg.max_inflight
+    st2 = st._replace(
+        recent_active=st.recent_active | at_s,
+        probe_sent=st.probe_sent & ~at_s,
+        inflight=torch.where(at_s & (st.pr_state == REPLICATE) & full,
+                             (st.inflight - 1).clamp(min=0), st.inflight),
+        send_append=st.send_append | (at_s & (st.match < _col(st.last))),
+    )
+    # ReadIndex ack: a heartbeat response echoing the pending read's ctx
+    # counts toward its quorum; quorum → read_ready.
+    pending = (st2.read_index >= 0) & ~st2.read_ready
+    ack = pending & (m.ctx == st2.read_seq) & (m.ctx > 0)
+    acks = st2.read_acks | (at_s & _col(ack))
+    confirmed = joint_vote_result(
+        _choose(acks, 1, -1), st2.voter, st2.voter_out,
+        st2.in_joint) == VOTE_WON
+    st2 = st2._replace(
+        read_acks=acks,
+        read_ready=st2.read_ready | (pending & confirmed),
+    )
+    return _sel(_pick_b(_repl_targets(st), at_s), st2, st)
+
+
+def _candidate_vote_resp(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                         m: MsgSlots, s: torch.Tensor) -> BatchedState:
+    """ref: raft.go:1399-1414."""
+    st2, res = _record_vote_and_tally(st, ids, s, ~m.reject)
+    won, lost = res == VOTE_WON, res == VOTE_LOST
+    if cfg.pre_vote:
+        st_won_pre = _campaign(cfg, st2, ids, False)
+    else:
+        st_won_pre = st2
+    st_won_real = _become_leader(cfg, st2, ids)
+    st_won_real = st_won_real._replace(
+        send_append=st_won_real.send_append
+        | (_repl_targets(st_won_real) & ~ids.is_self))
+    st_won = _sel(st.role == PRECANDIDATE, st_won_pre, st_won_real)
+    st_lost = _become_follower(cfg, st2, ids, st2.term,
+                               torch.zeros_like(st.lead))
+    return _sel(won, st_won, _sel(lost, st_lost, st2))
 
 
 # -----------------------------------------------------------------------------
@@ -873,6 +1100,84 @@ def _deliver_vectorized(cfg: BatchedConfig, ids: Ids, st: BatchedState,
     st = _vec_lane_app_resp(cfg, ids, st, _lane(inbox, KIND_APP_RESP))
     st = _vec_lane_hb_resp(cfg, ids, st, _lane(inbox, KIND_HB_RESP))
     return st, tuple(resps)
+
+
+# -----------------------------------------------------------------------------
+# Sender-scan deliver ("lanes", "merged"): the reference's length-R
+# lax.scan over senders is a Python loop unrolled into the round, one
+# handler application per (sender, kind) for every instance at once.
+# Every handler runs every round: an invalid slot is `dead`, leaves the
+# state as it is and answers with the all-zero no_resp, as the JAX
+# scans do (they skip no lane).
+# -----------------------------------------------------------------------------
+
+
+_LANE_HANDLERS = (
+    _lane_vote, _lane_app, _lane_hb,
+    _lane_vote_resp, _lane_app_resp, _lane_hb_resp,
+)
+
+
+def _sender_major(inbox: MsgSlots) -> MsgSlots:
+    """The inbox [N, R, K(, E)] as [R, K, N(, E)] per field, copied once,
+    so sender s's message in lane k, x[s, k], is a contiguous [N] (or
+    [N, E]) tensor: the kernel wrappers take no strided argument."""
+    return MsgSlots(*(x.movedim(0, 2).contiguous() for x in inbox))
+
+
+def _deliver_in_order(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                      inbox: MsgSlots, senders, order):
+    """Apply the handler of lane k to sender s's message for each
+    (s, k) of `order`; returns the state and the responses to the three
+    request lanes, [N, R] per field, as _deliver_vectorized does."""
+    msgs = _sender_major(inbox)
+    resps = [[None] * cfg.num_replicas for _ in range(NUM_REQ_KINDS)]
+    for s, k in order:
+        m = MsgSlots(*(x[s, k] for x in msgs))
+        out = _LANE_HANDLERS[k](cfg, ids, st, m, senders[s])
+        if k < NUM_REQ_KINDS:
+            st, resps[k][s] = out
+        else:
+            st = out
+    return st, tuple(MsgSlots(*(torch.stack(xs, dim=1) for xs in zip(*lane)))
+                     for lane in resps)
+
+
+def _deliver_lanes(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                   inbox: MsgSlots, senders):
+    """Six scans, one per kind lane, senders ascending within a lane
+    (kind-major order)."""
+    order = [(s, k) for k in range(NUM_KINDS)
+             for s in range(cfg.num_replicas)]
+    return _deliver_in_order(cfg, ids, st, inbox, senders, order)
+
+
+def _deliver_merged(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                    inbox: MsgSlots, senders):
+    """Two scans, the request half (kinds 0..2) then the response half,
+    each step chaining the half's three handlers for one sender
+    (sender-major order within a half)."""
+    order = [(s, k)
+             for half in (range(NUM_REQ_KINDS), range(NUM_REQ_KINDS, NUM_KINDS))
+             for s in range(cfg.num_replicas) for k in half]
+    return _deliver_in_order(cfg, ids, st, inbox, senders, order)
+
+
+def _deliver_all(cfg: BatchedConfig, ids: Ids, st: BatchedState,
+                 inbox: MsgSlots, senders):
+    """Deliver the inbox in the configured shape (cfg.deliver_shape,
+    resolved): "lanes" and "merged" are the sender scans above,
+    "vectorized" the scan-free fold. `senders` holds each sender slot
+    as an [N] int32 tensor, made once with the round."""
+    if cfg.deliver_shape == "vectorized":
+        return _deliver_vectorized(cfg, ids, st, inbox)
+    if cfg.deliver_shape == "merged":
+        return _deliver_merged(cfg, ids, st, inbox, senders)
+    if cfg.deliver_shape == "lanes":
+        return _deliver_lanes(cfg, ids, st, inbox, senders)
+    raise ValueError(
+        f"unresolved deliver_shape {cfg.deliver_shape!r}: call "
+        "cfg.resolved() before building a round program")
 
 
 # -----------------------------------------------------------------------------
@@ -1311,13 +1616,6 @@ def _fleet_frame(cfg: BatchedConfig, ids: Ids, rows: _FleetRows,
     return torch.cat([parts[name] for name, _l, _a in layout.fields])
 
 
-# The ROADMAP items that port what this module refuses.
-_NOT_PORTED = {
-    "lanes": "ROADMAP A8 (the sender-scan deliver shapes)",
-    "merged": "ROADMAP A8 (the sender-scan deliver shapes)",
-}
-
-
 def make_step_round(cfg: BatchedConfig, iids=None, slots=None,
                     with_aux: bool = False, device=None):
     """Build the round function:
@@ -1336,10 +1634,6 @@ with cfg.fleet_summary.)
     across topologies). The round runs on `device` (default: the GPU),
     or on the device of a tensor `iids`."""
     cfg = cfg.validate().resolved().apply_plane_key()
-    if cfg.deliver_shape != "vectorized":
-        raise NotImplementedError(
-            f"deliver_shape={cfg.deliver_shape!r} is not ported yet: "
-            + _NOT_PORTED[cfg.deliver_shape])
     if isinstance(iids, torch.Tensor) and device is None:
         dev = iids.device
     else:
@@ -1356,6 +1650,10 @@ with cfg.fleet_summary.)
     n = iids.shape[0]
     zero_i = torch.zeros((n,), dtype=I32, device=dev)
     zero_b = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # The sender scans' slot operands, made here: a tensor made inside
+    # the round would be a host-to-device copy, which a capture refuses.
+    senders = tuple(torch.full((n,), s, dtype=I32, device=dev)
+                    for s in range(cfg.num_replicas))
     fleet_rows = _fleet_rows(cfg, ids) if cfg.fleet_summary else None
 
     def step(st: BatchedState, inbox: MsgSlots, tick_mask, campaign_mask,
@@ -1372,7 +1670,7 @@ with cfg.fleet_summary.)
         # Partitioned instances neither receive nor send this round.
         iso = isolate.view(n, 1, 1)
         inbox = inbox._replace(valid=inbox.valid & ~iso)
-        st, req_resps = _deliver_vectorized(cfg, ids, st, inbox)
+        st, req_resps = _deliver_all(cfg, ids, st, inbox, senders)
         st = _tick(cfg, ids, st, tick_mask, campaign_mask)
         read_snap = (st.read_seq, st.read_index, st.read_ready)
         st = _control(cfg, ids, st, transfer_to, read_req)

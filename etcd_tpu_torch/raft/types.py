@@ -1,8 +1,7 @@
 """Wire types for the consensus core (ref: raft/raftpb/raft.proto).
 
-Ports the part of ``etcd_tpu/raft/types.py`` that the batched rawnode,
-the message codec, ``BatchedNode`` and raftexample use: the message,
-entry and conf-change enums, the entry, message, snapshot and hard-state
+Ports ``etcd_tpu/raft/types.py`` whole: the message, entry and
+conf-change enums, the entry, message, snapshot and hard-state
 dataclasses, and the conf changes with their protobuf-compatible varint
 encoding (empty messages marshal to empty bytes, as
 raft/raftpb/confchange.go:170 MarshalConfChange does). Field names,
@@ -232,6 +231,11 @@ class ConfChange:
                 cc.context = val
         return cc
 
+    def go_str(self) -> str:
+        """Go %v struct rendering, needed for trace-parity log lines."""
+        return "{%d %s %d %s}" % (self.id, self.type, self.node_id,
+                                  _go_bytes(self.context))
+
 
 @dataclass
 class ConfChangeV2:
@@ -291,6 +295,17 @@ class ConfChangeV2:
                 cc.context = val
         return cc
 
+    def go_str(self) -> str:
+        changes = " ".join("{%s %d}" % (c.type, c.node_id)
+                           for c in self.changes)
+        return "{%s [%s] %s}" % (self.transition, changes,
+                                 _go_bytes(self.context))
+
+
+def _go_bytes(b: bytes) -> str:
+    """Go %v of a []byte: space-separated decimal values in brackets."""
+    return "[" + " ".join(str(x) for x in b) + "]"
+
 
 def _encode_varint(x: int) -> bytes:
     out = bytearray()
@@ -346,3 +361,30 @@ def _decode_varint(data: bytes, i: int) -> Tuple[int, int]:
         if not b & 0x80:
             return val, i
         shift += 7
+
+
+def conf_changes_from_string(s: str) -> List[ConfChangeSingle]:
+    """Parse 'v1 l2 r3 u4' notation (ref: raftpb/confchange.go ConfChangesFromString)."""
+    ccs: List[ConfChangeSingle] = []
+    toks = s.strip().split()
+    kinds = {
+        "v": ConfChangeType.ConfChangeAddNode,
+        "l": ConfChangeType.ConfChangeAddLearnerNode,
+        "r": ConfChangeType.ConfChangeRemoveNode,
+        "u": ConfChangeType.ConfChangeUpdateNode,
+    }
+    for tok in toks:
+        if len(tok) < 2 or tok[0] not in kinds:
+            raise ValueError(f"unknown token {tok}")
+        ccs.append(ConfChangeSingle(kinds[tok[0]], int(tok[1:])))
+    return ccs
+
+
+def conf_changes_to_string(ccs: List[ConfChangeSingle]) -> str:
+    rev = {
+        ConfChangeType.ConfChangeAddNode: "v",
+        ConfChangeType.ConfChangeAddLearnerNode: "l",
+        ConfChangeType.ConfChangeRemoveNode: "r",
+        ConfChangeType.ConfChangeUpdateNode: "u",
+    }
+    return " ".join(f"{rev[c.type]}{c.node_id}" for c in ccs)

@@ -14,24 +14,27 @@ Loop order per Ready:
   6. publish committed entries, trigger snapshot every snap_count;
   7. Advance.
 
-Ports ``etcd_tpu/raftexample/raftnode.py`` with its batched backend
-(``backend="tpu"``, the reference's name for the batched engine, kept so
-that a caller's code carries over): each member is one ``BatchedNode``,
-whose rows live on the GPU unless the caller names another device. The
-scalar core behind ``backend="host"`` waits for its own ROADMAP item
-(A18) and raises here.
+Ports ``etcd_tpu/raftexample/raftnode.py`` with both of its backends:
+``backend="tpu"`` (the reference's name for the batched engine, kept so
+that a caller's code carries over) makes each member one
+``BatchedNode``, whose rows live on the GPU unless the caller names
+another device; ``backend="host"`` runs the scalar core's threaded
+``Node`` over a ``MemoryStorage``, which touches no device. The port's
+default is ``"tpu"``; the reference's is ``"host"``.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Callable, List
+import time
+from typing import Callable, List, Optional
 
 from ..batched.node import BatchedNode
 from ..batched.rawnode import RowRestore
 from ..batched.state import resolve_device
-from ..raft.raft import StateType
+from ..raft.node import Node, Peer
+from ..raft.raft import Config, NONE, StateType
 from ..raft.rawnode import Ready
 from ..raft.storage import MemoryStorage
 from ..raft.types import (
@@ -41,7 +44,9 @@ from ..raft.types import (
     Entry,
     EntryType,
     Message,
+    MessageType,
     Snapshot,
+    SnapshotMetadata,
     is_empty_snap,
 )
 from ..storage.snap import NoSnapshotError, Snapshotter
@@ -73,21 +78,18 @@ class ExampleRaftNode:
         backend: str = "tpu",
         device=None,
     ) -> None:
-        """`backend` names the raft implementation at this single
+        """`backend` selects the raft implementation at this single
         construction site (ref: etcdserver/bootstrap.go:473-536
-        bootstrapRaft): "tpu" is the batched engine behind the Node
+        bootstrapRaft): "host" = the reference-shaped Python core,
+        "tpu" = the batched device engine behind the same Node
         contract (batched/node.py), on `device` (the GPU unless the
-        caller names another); "host", the scalar core, is not ported
-        yet and raises. `join` is kept for the reference's signature:
-        the batched member boots from its WAL, or from the peer list,
-        either way."""
-        if backend == "host":
-            raise NotImplementedError(
-                "raftexample's host backend (the scalar raft core) is not "
-                "ported yet: ROADMAP A18")
-        assert backend == "tpu", backend
-        # Before any file is touched: no GPU and no device named raises.
-        device = resolve_device(device)
+        caller names another)."""
+        assert backend in ("host", "tpu"), backend
+        self.backend = backend
+        if backend == "tpu":
+            # Before any file is touched: no GPU and no device named
+            # raises.
+            device = resolve_device(device)
         self.id = node_id
         self.peers = list(peers)
         self.network = network
@@ -109,26 +111,44 @@ class ExampleRaftNode:
         self.applied_index = 0
         self._stopped = threading.Event()
 
-        self._restore_data = None  # set by _replay
+        old_wal = WAL.exists(self.wal_dir)
+        self._restore_data = None  # set by _replay for the tpu backend
         self._replay()
 
-        # Device ring must cover the un-snapshotted tail: snapshots
-        # (and the host-driven ring compaction that follows them)
-        # happen every `snap_count` entries, so size the window past
-        # that plus catch-up margin.
-        window = 1 << max(6, (2 * snap_count + 64).bit_length())
-        window = min(window, 1 << 15)
-        self.snap_count = min(snap_count, window // 4)
-        self.node = BatchedNode(
-            node_id=node_id,
-            peers=peers,
-            election_tick=election_tick,
-            heartbeat_tick=heartbeat_tick,
-            window=window,
-            restore=self._restore_data,
-            device=device,
-        )
-        self._restore_data = None
+        if backend == "tpu":
+            # Device ring must cover the un-snapshotted tail: snapshots
+            # (and the host-driven ring compaction that follows them)
+            # happen every `snap_count` entries, so size the window past
+            # that plus catch-up margin.
+            window = 1 << max(6, (2 * snap_count + 64).bit_length())
+            window = min(window, 1 << 15)
+            self.snap_count = min(snap_count, window // 4)
+            self.node = BatchedNode(
+                node_id=node_id,
+                peers=peers,
+                election_tick=election_tick,
+                heartbeat_tick=heartbeat_tick,
+                window=window,
+                restore=self._restore_data,
+                device=device,
+            )
+            self._restore_data = None
+        else:
+            cfg = Config(
+                id=node_id,
+                election_tick=election_tick,
+                heartbeat_tick=heartbeat_tick,
+                storage=self.raft_storage,
+                max_size_per_msg=1024 * 1024,
+                max_inflight_msgs=256,
+                max_uncommitted_entries_size=1 << 30,
+                check_quorum=True,
+                pre_vote=True,
+            )
+            if old_wal or join:
+                self.node = Node.restart(cfg)
+            else:
+                self.node = Node.start(cfg, [Peer(id=p) for p in peers])
 
         self.storage = ServerStorage(self.wal, self.snapshotter)
         network.register(
@@ -167,6 +187,8 @@ class ExampleRaftNode:
             self.raft_storage.set_hard_state(hs)
             self.raft_storage.append(ents)
             base = snap.metadata.index
+            if self.backend != "tpu":
+                return
             self._restore_data = RowRestore(
                 term=hs.term,
                 vote=hs.vote,
@@ -207,7 +229,11 @@ class ExampleRaftNode:
             self.storage.save_snap(rd.snapshot)
         self.wal.save(rd.hard_state, rd.entries, rd.must_sync)
         if not is_empty_snap(rd.snapshot):
+            if self.backend == "host":
+                self.raft_storage.apply_snapshot(rd.snapshot)
             self._publish_snapshot(rd.snapshot)
+        if rd.entries and self.backend == "host":
+            self.raft_storage.append(rd.entries)
         self.network.send(self.id, rd.messages)
         ok = self._publish_entries(self._entries_to_apply(rd.committed_entries))
         if not ok:
@@ -272,15 +298,31 @@ class ExampleRaftNode:
         if self.applied_index - self.snapshot_index <= self.snap_count:
             return
         data = self.snapshot_fn()
-        snap = self.node.create_snapshot(
-            self.applied_index, self.confstate, data
-        )
-        self.storage.save_snap(snap)
-        # Catch-up margin below the floor, like the host path: a
-        # slightly-lagging follower replays entries instead of taking a
-        # full snapshot (ref: raftexample/raft.go snapshotCatchUpEntriesN).
-        margin = min(SNAPSHOT_CATCHUP_ENTRIES, self.node.cfg.window // 8)
-        self.node.compact(max(1, self.applied_index - margin), snap)
+        if self.backend == "tpu":
+            snap = self.node.create_snapshot(
+                self.applied_index, self.confstate, data
+            )
+            self.storage.save_snap(snap)
+            # Catch-up margin below the floor, like the host path: a
+            # slightly-lagging follower replays entries instead of
+            # taking a full snapshot (ref: raftexample/raft.go
+            # snapshotCatchUpEntriesN).
+            margin = min(SNAPSHOT_CATCHUP_ENTRIES,
+                         self.node.cfg.window // 8)
+            self.node.compact(
+                max(1, self.applied_index - margin), snap)
+        else:
+            snap = self.raft_storage.create_snapshot(
+                self.applied_index, self.confstate, data
+            )
+            self.storage.save_snap(snap)
+            compact_index = 1
+            if self.applied_index > SNAPSHOT_CATCHUP_ENTRIES:
+                compact_index = self.applied_index - SNAPSHOT_CATCHUP_ENTRIES
+            try:
+                self.raft_storage.compact(compact_index)
+            except Exception:  # noqa: BLE001 — already compacted is fine
+                pass
         self.storage.release(snap)
         self.snapshot_index = self.applied_index
 

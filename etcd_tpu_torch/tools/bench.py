@@ -13,8 +13,10 @@ the JAX bench runs its accelerator cell. Like the JAX bench it reads
 three variables, each 0 (the default) or 1: BENCH_PIPELINE=1 times
 one run_rounds_pipelined pass (chunk = 16) in place of the serial
 calls, BENCH_TELEMETRY=1 and BENCH_FLEET=1 add the telemetry and the
-fleet summary planes to the round. The headline is serial with both
-planes off.
+fleet summary planes to the round. BENCH_DELIVER_SHAPE=lanes|merged|
+vectorized pins the deliver shape, as in the JAX bench (unset: the
+package default, vectorized). The headline is serial with both planes
+off.
 
 Prints exactly one JSON line: {"metric", "value", "unit", "vs_baseline"}.
 The unit names the device (for a GPU: its name and power limit), G, R,
@@ -58,6 +60,20 @@ def env_flag(name: str) -> bool:
     return value == "1"
 
 
+def deliver_shape_env() -> str:
+    """BENCH_DELIVER_SHAPE, as the JAX bench reads it (unset: "auto")."""
+    if os.environ.get("BENCH_MERGED_DELIVER", ""):
+        raise SystemExit(
+            "BENCH_MERGED_DELIVER was replaced by "
+            "BENCH_DELIVER_SHAPE=lanes|merged|vectorized")
+    shape = os.environ.get("BENCH_DELIVER_SHAPE", "")
+    if shape and shape not in ("lanes", "merged", "vectorized"):
+        raise SystemExit(
+            "BENCH_DELIVER_SHAPE must be lanes|merged|vectorized, "
+            f"got {shape!r}")
+    return shape or "auto"
+
+
 def result_line(eng, rate: float, p50_ms: float, p50_rounds: int,
                 launches: dict, pipelined: bool = False) -> str:
     """The bench's one JSON line for an engine and its measurements."""
@@ -81,7 +97,8 @@ def result_line(eng, rate: float, p50_ms: float, p50_rounds: int,
 def main() -> None:
     pipelined = env_flag("BENCH_PIPELINE")
     eng, props = make_bench_engine(GROUPS, env_flag("BENCH_TELEMETRY"),
-                                   env_flag("BENCH_FLEET"))
+                                   env_flag("BENCH_FLEET"),
+                                   deliver_shape=deliver_shape_env())
     hopper_kernels.reset_launches()
     rate = measure_rate(eng, props, ROUNDS_PER_CALL, CALLS, pipelined)
     launches = dict(hopper_kernels.LAUNCHES)

@@ -25,10 +25,13 @@ def _sync(eng) -> None:
 
 
 def bench_config(groups: int, telemetry: bool = False,
-                 fleet: bool = False) -> BatchedConfig:
+                 fleet: bool = False,
+                 deliver_shape: str = "auto") -> BatchedConfig:
     """The canonical bench config: R=3, W=32, E=4, P=2, steady state with
     no timer elections, auto-compacting ring; `telemetry` and `fleet`
-    add the telemetry and fleet summary planes to the round."""
+    add the telemetry and fleet summary planes to the round;
+    `deliver_shape` is lanes | merged | vectorized ("auto": the
+    package default)."""
     return BatchedConfig(
         num_groups=groups,
         num_replicas=3,
@@ -38,18 +41,22 @@ def bench_config(groups: int, telemetry: bool = False,
         election_timeout=1 << 20,  # steady state: no timer elections
         heartbeat_timeout=4,
         auto_compact=True,  # sustained load: ring chases the applied mark
+        deliver_shape=deliver_shape,
         telemetry=telemetry,
         fleet_summary=fleet,
     )
 
 
 def make_bench_engine(groups: int, telemetry: bool = False,
-                      fleet: bool = False, device=None):
+                      fleet: bool = False, device=None,
+                      deliver_shape: str = "auto"):
     """Build the canonical bench engine, elect every group's slot-0
     replica, and return the engine plus the steady
     2-entries-per-group-per-round proposal vector. The headline number
-    runs with both planes off; `telemetry`/`fleet` measure their cost."""
-    cfg = bench_config(groups, telemetry, fleet)
+    runs with both planes off; `telemetry`/`fleet` measure their cost.
+    `deliver_shape` is the shape A/B axis: every result names the
+    concrete shape it ran (engine.cfg.deliver_shape, resolved)."""
+    cfg = bench_config(groups, telemetry, fleet, deliver_shape)
     eng = MultiRaftEngine(cfg, device=device)
     eng.campaign(range(0, cfg.num_instances, cfg.num_replicas))
     eng.run_rounds(4, tick=False)

@@ -801,3 +801,85 @@ def test_admin_ops_beside_first_captures(dev, tmp_path):
         c.stop()
     lines = c.launch_lines()
     assert len(lines) == 3 and all(ln["rounds"] > 0 for ln in lines), lines
+
+
+# -- the sender-scan deliver shapes ------------------------------------------------
+
+
+@pytest.mark.parametrize("config", ["bench", "prevote_cq"])
+@pytest.mark.parametrize("shape", ["lanes", "merged"])
+def test_scan_shape_on_cuda_equals_cpu(dev, shape, config):
+    """Each sender scan's round on the card (its kernels at the new
+    per-sender sites) equals the same round on the CPU, every state
+    field and the outbox after every round of chip_smoke's parity
+    schedule at G=8."""
+    hk.reset_launches()
+    cfg = chip_smoke.parity_configs(8)[config]._replace(deliver_shape=shape)
+    chip_smoke.parity_run(cfg, config, dev, torch.device("cpu"), 40)
+    assert min(hk.LAUNCHES.values()) > 0
+
+
+def test_scan_graph_replays_equal_eager_rounds(dev):
+    cfg = chip_smoke.parity_configs(64, planes=True)["prevote_cq"]
+    res = chip_smoke.graph_vs_eager(cfg._replace(deliver_shape="lanes"),
+                                    dev, seed=5)
+    assert res["captures"] == 2 and res["rounds"] == 44
+
+
+def test_lanes_replays_beside_a_capture_in_a_thread(dev):
+    """A lanes engine replays its graph in a thread while a lanes
+    rawnode makes its first captures here: both go through
+    graph.device_work, so no capture breaks (ROADMAP rule 8)."""
+    import threading
+
+    from etcd_tpu_torch.batched.rawnode import BatchedRawNode
+
+    cfg = chip_smoke.parity_configs(64)["prevote_cq"]._replace(
+        deliver_shape="lanes")
+    eng = MultiRaftEngine(cfg, device=dev)
+    eng.campaign(range(0, cfg.num_instances, 3))
+    eng.run_rounds(2, tick=True)
+    stop, errors, replays = threading.Event(), [], []
+
+    def replay():
+        try:
+            while not stop.is_set():
+                eng.run_rounds(2, tick=True)
+                replays.append(2)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t = threading.Thread(target=replay)
+    t.start()
+    try:
+        rns = chip_smoke.hosted_members(cfg, dev)
+        rns[1].campaign(list(range(cfg.num_groups)))
+        for _ in range(6):
+            for rn in rns.values():
+                rd = rn.advance_round()
+                chip_smoke.route(rns, rd)
+                rn.advance()
+    finally:
+        stop.set()
+        t.join(60)
+    assert not errors, errors
+    assert replays and eng.captures == 1
+    assert {rn.captures for rn in rns.values()} == {1}
+    assert rns[1].is_leader(0)
+
+
+def test_shadow_on_the_card(dev):
+    """chip_smoke's shadow phase at 8 groups: the engine on the card
+    against the port's scalar Raft, every shape and schedule."""
+    hk.reset_launches()
+    chip_smoke.run_shadow(dev, groups=8)
+    assert min(hk.LAUNCHES.values()) > 0
+
+
+def test_shapes_phase_at_a_small_width(dev):
+    """chip_smoke's shapes phase at G=512: the three shapes agree, each
+    shape's kernel forms equal their plain versions, and both kernels
+    launch under each."""
+    out = chip_smoke.run_shapes(dev, groups=512)
+    assert set(out) == {"shapes_lanes", "shapes_merged", "shapes_vectorized"}
+    assert all(min(p["launches"].values()) > 0 for p in out.values())

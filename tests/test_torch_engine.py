@@ -143,7 +143,8 @@ def test_port_imports_no_jax():
     native library, the apply plane, the hubs, the tracer, the
     membership store, the wire codec, the hosting stack, the shm fabric,
     the chaos harness, the checkers, the worker process and its admin
-    server, the rebalancer and the tools that drive them among them),
+    server, the rebalancer and the tools that drive them, the scalar
+    raft core, the shadow cluster and its lockstep tool among them),
     building and loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
@@ -175,7 +176,12 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.tools.multiraft_proc_demo",
           "etcd_tpu_torch.tools.multiraft_demo",
           "etcd_tpu_torch.tools.rebalancerd",
-          "etcd_tpu_torch.tools.proc_cluster"):
+          "etcd_tpu_torch.tools.proc_cluster",
+          "etcd_tpu_torch.raft.raft", "etcd_tpu_torch.raft.rawnode",
+          "etcd_tpu_torch.raft.node", "etcd_tpu_torch.raft.log",
+          "etcd_tpu_torch.raft.logger", "etcd_tpu_torch.raft.read_only",
+          "etcd_tpu_torch.raft.util", "etcd_tpu_torch.batched.shadow",
+          "etcd_tpu_torch.tools.shadow_lockstep"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))

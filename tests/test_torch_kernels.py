@@ -256,13 +256,16 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     assert not hk.FORM_LAUNCHES
 
 
-@pytest.mark.parametrize("label", ["bench", "prevote_cq"])
+@pytest.mark.parametrize("label", ["bench", "prevote_cq", "bench/lanes",
+                                   "bench/merged", "prevote_cq/lanes",
+                                   "prevote_cq/merged"])
 def test_round_sites_pass_contiguous_arguments(monkeypatch, label):
     """The site functions hand their arguments to the wrappers without
     a copy, and a wrapper on the card raises on a strided tensor: every
     argument that reaches a wrapper over 40 rounds of a seeded schedule
     (elections, proposals, a partition, reads, transfers) is
-    contiguous, in both parity configs of chip_smoke.py."""
+    contiguous, in both parity configs of chip_smoke.py, with the
+    default deliver shape and with each sender scan ("config/shape")."""
     from etcd_tpu_torch.batched.state import BatchedConfig, init_state
     from etcd_tpu_torch.batched.step import (
         NUM_KINDS, empty_msgs, make_step_round, route)
@@ -283,10 +286,13 @@ def test_round_sites_pass_contiguous_arguments(monkeypatch, label):
 
     for name in ("quorum_commit", "quorum_vote", "term_at_batch"):
         checked(name)
-    cfg = bench_config(8) if label == "bench" else BatchedConfig(
+    base, _, shape = label.partition("/")
+    cfg = bench_config(8) if base == "bench" else BatchedConfig(
         num_groups=8, num_replicas=3, window=16, max_ents_per_msg=4,
         max_props_per_round=4, election_timeout=10, heartbeat_timeout=1,
         pre_vote=True, check_quorum=True, auto_compact=True)
+    if shape:
+        cfg = cfg._replace(deliver_shape=shape)
     n = cfg.num_instances
     cpu = torch.device("cpu")
     st = init_state(cfg, device=cpu)
@@ -298,7 +304,7 @@ def test_round_sites_pass_contiguous_arguments(monkeypatch, label):
         if 20 <= rnd < 30:
             iso[rnd % 3::7] = True
         st, out = step(
-            st, inbox, torch.full((n,), rnd % 2 == 0 or label != "bench"),
+            st, inbox, torch.full((n,), rnd % 2 == 0 or base != "bench"),
             torch.rand(n, generator=gen) < (0.3 if rnd < 3 else 0.01),
             torch.randint(0, cfg.max_props_per_round + 1, (n,),
                           generator=gen, dtype=torch.int32),

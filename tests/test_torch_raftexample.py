@@ -2,9 +2,11 @@
 ``etcd_tpu_torch`` BatchedNodes (device="cpu"), each member with its own
 Ready loop, ticker and network pump threads, its WAL and its snapshots.
 
-* The batched-backend cluster scenarios of
-  tests/raftexample/test_cluster.py (propose, forwarding, failover,
-  restart from the WAL, snapshot trigger and restore), run on the port.
+* The cluster scenarios of tests/raftexample/test_cluster.py (propose,
+  forwarding, failover, restart from the WAL, snapshot trigger and
+  restore), run on the port on both backends: the batched one and the
+  scalar core's ("host").
+* raftnode.py pinned to etcd_tpu's by its syntax tree.
 * Cross-read: the WAL and snapshot directories a port member writes are
   replayed by etcd_tpu's ``WAL.read_all`` and ``Snapshotter.load`` to
   equal records and snapshots, and an etcd_tpu member's directories by
@@ -36,26 +38,31 @@ from etcd_tpu_torch.storage import wal as twal
 from .raftexample.test_cluster import stop_all, wait_leader, wait_until
 
 
-def make_cluster(tmp_path, snap_count=10000, net=None):
+def make_cluster(tmp_path, snap_count=10000, net=None, backend="tpu"):
     net = net or InProcNetwork()
     nodes, kvs = {}, {}
     for nid in (1, 2, 3):
-        nodes[nid], kvs[nid] = member(tmp_path, nid, net, snap_count)
+        nodes[nid], kvs[nid] = member(tmp_path, nid, net, snap_count,
+                                      backend)
     return net, nodes, kvs
 
 
-def member(tmp_path, nid, net, snap_count=10000):
+def member(tmp_path, nid, net, snap_count=10000, backend="tpu"):
     kv = ReplicatedKV()
     node = ExampleRaftNode(
         node_id=nid, peers=[1, 2, 3], network=net, data_dir=str(tmp_path),
         apply_fn=kv.apply, snapshot_fn=kv.snapshot, restore_fn=kv.restore,
-        snap_count=snap_count, tick_interval=0.01, device="cpu")
+        snap_count=snap_count, tick_interval=0.01, backend=backend,
+        device="cpu")
     kv.attach(node)
     return node, kv
 
 
-def test_propose_replicates_everywhere(tmp_path):
-    net, nodes, kvs = make_cluster(tmp_path)
+# -- the cluster scenarios, each run on both backends -------------------------
+
+
+def propose_replicates_everywhere(tmp_path, backend):
+    net, nodes, kvs = make_cluster(tmp_path, backend=backend)
     try:
         lead = wait_leader(nodes)
         kvs[lead].propose("foo", "bar")
@@ -66,8 +73,8 @@ def test_propose_replicates_everywhere(tmp_path):
         stop_all(net, nodes)
 
 
-def test_follower_proposal_forwarded(tmp_path):
-    net, nodes, kvs = make_cluster(tmp_path)
+def follower_proposal_forwarded(tmp_path, backend):
+    net, nodes, kvs = make_cluster(tmp_path, backend=backend)
     try:
         lead = wait_leader(nodes)
         follower = next(i for i in nodes if i != lead)
@@ -79,8 +86,8 @@ def test_follower_proposal_forwarded(tmp_path):
         stop_all(net, nodes)
 
 
-def test_leader_failover(tmp_path):
-    net, nodes, kvs = make_cluster(tmp_path)
+def leader_failover(tmp_path, backend):
+    net, nodes, kvs = make_cluster(tmp_path, backend=backend)
     try:
         lead = wait_leader(nodes)
         kvs[lead].propose("before", "1")
@@ -100,8 +107,8 @@ def test_leader_failover(tmp_path):
         stop_all(net, nodes)
 
 
-def test_restart_replays_wal(tmp_path):
-    net, nodes, kvs = make_cluster(tmp_path)
+def restart_replays_wal(tmp_path, backend):
+    net, nodes, kvs = make_cluster(tmp_path, backend=backend)
     try:
         lead = wait_leader(nodes)
         for i in range(20):
@@ -111,15 +118,16 @@ def test_restart_replays_wal(tmp_path):
                    msg="replication before restart")
         nodes[victim].stop()
         # Restart from disk: WAL replay must restore all applied state.
-        nodes[victim], kvs[victim] = member(tmp_path, victim, net)
+        nodes[victim], kvs[victim] = member(tmp_path, victim, net,
+                                            backend=backend)
         wait_until(lambda: kvs[victim].lookup("k19") == "v19", timeout=20.0,
                    msg="state after WAL replay")
     finally:
         stop_all(net, nodes)
 
 
-def test_snapshot_trigger_and_restore(tmp_path):
-    net, nodes, kvs = make_cluster(tmp_path, snap_count=20)
+def snapshot_trigger_and_restore(tmp_path, backend):
+    net, nodes, kvs = make_cluster(tmp_path, snap_count=20, backend=backend)
     try:
         lead = wait_leader(nodes)
         for i in range(60):
@@ -130,18 +138,112 @@ def test_snapshot_trigger_and_restore(tmp_path):
         assert any(f.endswith(".snap") for f in os.listdir(snapdir))
         victim = next(i for i in nodes if i != lead)
         nodes[victim].stop()
-        nodes[victim], kvs[victim] = member(tmp_path, victim, net, 20)
+        nodes[victim], kvs[victim] = member(tmp_path, victim, net, 20,
+                                            backend)
         wait_until(lambda: kvs[victim].lookup("k59") == "v59", timeout=20.0,
                    msg="restore from snapshot + tail")
     finally:
         stop_all(net, nodes)
 
 
-def test_host_backend_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        ExampleRaftNode(1, [1], InProcNetwork(), str(tmp_path),
-                        lambda ents: None, lambda: b"", lambda data: None,
-                        backend="host", device="cpu")
+SCENARIOS = {
+    "propose_replicates_everywhere": propose_replicates_everywhere,
+    "follower_proposal_forwarded": follower_proposal_forwarded,
+    "leader_failover": leader_failover,
+    "restart_replays_wal": restart_replays_wal,
+    "snapshot_trigger_and_restore": snapshot_trigger_and_restore,
+}
+
+
+def test_propose_replicates_everywhere(tmp_path):
+    propose_replicates_everywhere(tmp_path, "tpu")
+
+
+def test_follower_proposal_forwarded(tmp_path):
+    follower_proposal_forwarded(tmp_path, "tpu")
+
+
+def test_leader_failover(tmp_path):
+    leader_failover(tmp_path, "tpu")
+
+
+def test_restart_replays_wal(tmp_path):
+    restart_replays_wal(tmp_path, "tpu")
+
+
+def test_snapshot_trigger_and_restore(tmp_path):
+    snapshot_trigger_and_restore(tmp_path, "tpu")
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_host_backend_cluster(tmp_path, scenario):
+    """The same scenarios on the scalar core's threaded Node, as
+    tests/raftexample/test_cluster.py runs them on both backends."""
+    SCENARIOS[scenario](tmp_path, "host")
+
+
+def test_host_backend_touches_no_device(tmp_path, monkeypatch):
+    """A host member needs no GPU and takes no device lock: its Node
+    thread runs the scalar core only."""
+    import torch
+
+    from etcd_tpu_torch.batched import graph
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    taken = []
+    real = graph.device_work
+
+    def spy():
+        taken.append(1)
+        return real()
+
+    monkeypatch.setattr(graph, "device_work", spy)
+    net, nodes, kvs = make_cluster(tmp_path, backend="host")
+    try:
+        lead = wait_leader(nodes)
+        kvs[lead].propose("k", "v")
+        for nid in nodes:
+            wait_until(lambda nid=nid: kvs[nid].lookup("k") == "v",
+                       msg=f"replication to node {nid}")
+        assert all(type(n.node).__module__ == "etcd_tpu_torch.raft.node"
+                   for n in nodes.values())
+    finally:
+        stop_all(net, nodes)
+    assert taken == []
+
+
+def test_raftnode_is_the_reference_code():
+    """raftnode.py equals etcd_tpu's by syntax tree once the listed
+    differences are normalized away: the `device` argument, its
+    resolve_device guard for the batched backend, and the default
+    backend ("tpu" here, "host" there)."""
+    import ast
+
+    from .test_torch_hosting import _dump, _Normalize, defs_of
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rel = "raftexample/raftnode.py"
+    ref = defs_of(os.path.join(root, "etcd_tpu", rel))
+    port = defs_of(os.path.join(root, "etcd_tpu_torch", rel))
+    assert set(port) == set(ref)
+    norm = _Normalize(args=("device",), stmt=lambda s: (
+        isinstance(s, ast.If) and "resolve_device" in ast.unparse(s)),
+        names=("resolve_device",))
+    for name in sorted(port):
+        a, b = ref[name], port[name]
+        if name == "<module>":
+            b = norm.apply(b)
+            b = [x for x in b if not (isinstance(x, ast.ImportFrom)
+                                      and not x.names)]
+        elif name == "ExampleRaftNode.__init__":
+            a = norm.apply(a)
+            b = norm.apply(b)
+            backend = [d for arg, d in zip(
+                b.args.args[-len(b.args.defaults):], b.args.defaults)
+                if arg.arg == "backend"]
+            assert backend and backend[0].value == "tpu"
+            backend[0].value = "host"
+        assert _dump(a) == _dump(b), name
 
 
 def test_member_needs_the_gpu_or_a_named_device(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """PyTorch port ↔ JAX reference: the batched round.
 
 The round of etcd_tpu_torch/batched/step.py (on the CPU, plain forms)
-and the round of etcd_tpu/batched/step.py (deliver_shape="vectorized")
+and the round of etcd_tpu/batched/step.py (deliver_shape="vectorized";
+tests/test_torch_shapes*.py hold the two sender-scan shapes)
 are stepped in lockstep from the same state with the same host inputs;
 after EVERY round every BatchedState field, the outbox and the routed
 inbox must be equal in value and dtype.
@@ -384,14 +385,6 @@ def test_aux_reports_pre_propose_watermark():
     assert int(st.last[0]) == int(before.last[0]) + 2
     assert aux.read_index.dtype == torch.int32
     assert aux.read_ready.dtype == torch.bool
-
-
-@pytest.mark.parametrize("change", [dict(deliver_shape="lanes"),
-                                    dict(deliver_shape="merged")])
-def test_unported_options_are_refused(change):
-    cfg = tstate.BatchedConfig(**SUSTAINED)._replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tstep.make_step_round(cfg, device="cpu")
 
 
 def test_convert_roundtrip():
