@@ -46,11 +46,19 @@ failpoint crash, a torn WAL tail, an fsync fail-stop, a WAL-pipeline
 crash window) over CUDA members, each closed by the strict checkers,
 and the message-fault cell again under each sender scan,
 runs the server as three worker processes on the card over TCP (the
-port's hosted_bench at its defaults with 9,000 puts, its kill -9 and
+port's hosted_bench at its defaults with 6,000 puts, its kill -9 and
 restart; then the reference's three-process e2e flow with tracing, the
 fleet console and a kill -9), and rebalances leadership (the port's
 rebalancerd over three workers with every group on one member; the
-limp-eviction episode over CUDA members in this process).
+limp-eviction episode over CUDA members in this process), then runs the
+etcd server (three EtcdServers on the card, each behind a V3RPCServer,
+driven by 100 client connections: etcd's documented benchmark cut to
+8,000 puts of 8-byte keys and 256-byte values, ranges of both
+consistencies, a txn mix, leases, a watch, a compaction, a contended
+lock, a follower restarted on its WAL, a MsgSnap catch-up; every acked
+put read back on every member, the KV against a dict oracle, hash_check,
+every node form against its plain version) and holds servers on CUDA
+against servers on the CPU response for response.
 Each phase prints one line; any failure raises and the script exits
 non-zero. It needs CUDA: without it, it prints no result and exits
 non-zero.
@@ -61,17 +69,19 @@ counts launches per kernel and per form), a line with each phase's wall
 seconds, then a JSON line {"kernels": [...]} with every kernel's
 launches on each path (the engine's, each deliver shape's, the hosted
 one, the plane-on hosted one, the node's, raftexample's, the hosting
-server's and its worker processes', each counted from 0 around its
-run), at its most launched engine form its device time warm and cold,
-plain-version time and bound, and every form with its launches per
-engine round (under each deliver shape), rawnode, node and hosting
-member round (in process and in a worker); then the card's name and
+server's and its worker processes', the etcd server's, each counted
+from 0 around its run), at its most launched engine form its device
+time warm and cold, plain-version time and bound, and every form with
+its launches per engine round (under each deliver shape), rawnode, node,
+server (one member's node round) and hosting member round (in process
+and in a worker); then the card's name and
 power limit as nvidia-smi reports them; then, last,
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import os
@@ -192,7 +202,7 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
     around its own run), and every form it was timed at with that form's
     launches per engine round (N = 196,608), per rawnode round
     (N = 65,536), per hosting member round (N = 1,024) and per node
-    round (N = 1)."""
+    round and server round (N = 1)."""
     from etcd_tpu_torch.tools import kernel_times as kt
 
     per_round = {path: {k: v / p["rounds"] for k, v in p["forms"].items()}
@@ -204,7 +214,8 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
                   key=lambda v: paths["slice"]["forms"].get(v["form"], 0))
         forms = []
         for v in mine:
-            path_rounds = ({"node": "node"} if v["n"] == 1 else
+            path_rounds = ({"node": "node", "server": "server"}
+                           if v["n"] == 1 else
                            {"hosting": "hosting",
                             "hosting_proc": "hosting_proc"}
                            if v["n"] == kt.HOSTING_GROUPS else
@@ -2479,6 +2490,18 @@ def leader_of(members, g: int):
     return next((m for m in members if m.is_leader(g)), None)
 
 
+def group_leads(members, groups: int) -> list:
+    """Each group's leader's id (None where it has none)."""
+    members = list(members)
+    return [getattr(leader_of(members, g), "id", None)
+            for g in range(groups)]
+
+
+def leads_moved(a: list, b: list) -> int:
+    """Groups whose leader differs between two group_leads."""
+    return sum(x != y for x, y in zip(a, b, strict=True))
+
+
 def balance_leaders(members, groups: int, timeout: float) -> int:
     """hosted_bench's layout, group g led by member g % 3 + 1, by
     transfers from the current leader; returns the groups still
@@ -2562,21 +2585,44 @@ def hosting_puts(members, groups: int, n: int, first: int, value: bytes,
             "retries": retries}
 
 
-def linearizable_reads(members, acked: dict, n: int) -> list:
+# Reads sent again, in all, after the member they went to lost its
+# group's lead before their ReadIndex was confirmed.
+READ_RETRIES = 2
+
+
+def linearizable_reads(members, acked: dict, n: int) -> "tuple[list, list]":
     """linearizable_get of `n` sampled acked keys, each on its group's
-    leader, each equal to the acked value; returns their seconds. (A
-    function of its own: no member outlives it in a local.)"""
+    leader, each equal to the acked value; returns their seconds and each
+    retry as (group, the member that lost the lead, the new leader). A
+    read whose ReadIndex is not confirmed in 10 s is sent again only if
+    its member no longer leads the group, at most READ_RETRIES times in
+    all; else it raises. (A function of its own: no member outlives it in
+    a local.)"""
     rng = np.random.RandomState(SEED)
     keys = list(acked)
-    lat = []
+    lat, moves = [], []
     for j in rng.choice(len(keys), n, replace=False):
         g, k = keys[j]
         t = time.perf_counter()
-        got = leader_of(members, g).linearizable_get(g, k, timeout=10.0)
+        while True:
+            lead = leader_of(members, g)
+            while lead is None and time.perf_counter() - t < 30.0:
+                time.sleep(0.01)
+                lead = leader_of(members, g)
+            if lead is None:
+                raise AssertionError(f"hosting: group {g} has no leader")
+            try:
+                got = lead.linearizable_get(g, k, timeout=10.0)
+                break
+            except TimeoutError:
+                if lead.is_leader(g) or len(moves) >= READ_RETRIES:
+                    raise
+                now = leader_of(members, g)
+                moves.append((g, lead.id, now.id if now else None))
         lat.append(time.perf_counter() - t)
         if got != acked[(g, k)]:
             raise AssertionError(f"hosting: linearizable_get g{g} {k!r}")
-    return lat
+    return lat, moves
 
 
 def run_hosting(dev, groups: int | None = None, puts: int = HOSTING_PUTS,
@@ -2723,8 +2769,11 @@ def run_hosting(dev, groups: int | None = None, puts: int = HOSTING_PUTS,
              "every acked put on every member", 120.0)
 
         # Device time per member round: a second wave of one put per
-        # group under the profiler (every member's thread records).
+        # group under the profiler (every member's thread records); each
+        # member's rounds wait on its start and its stop (prof_s).
         device = {"device_ms": "not measured"}
+        prof_s = {}
+        leads_profiled = group_leads(members.values(), groups)
         if cuda:
             from torch.profiler import ProfilerActivity, profile
 
@@ -2735,16 +2784,20 @@ def run_hosting(dev, groups: int | None = None, puts: int = HOSTING_PUTS,
             # CUPTI teardown deadlocks with a graph launch in another
             # thread (ROADMAP C9).
             prof = profile(activities=[ProfilerActivity.CUDA])
+            t = time.perf_counter()
             with device_work():
                 prof.start()
+            prof_s["start"] = time.perf_counter() - t
             r1 = rounds()
             try:
                 wave = hosting_puts(list(members.values()), groups, groups,
                                     puts, value, 1, timeout=120.0)
             finally:
+                t = time.perf_counter()
                 with device_work():
                     torch.cuda.synchronize(dev)
                     prof.stop()
+                prof_s["stop"] = time.perf_counter() - t
             wave_rounds = rounds() - r1
             acked.update(wave["acked"])
             ev = kernel_events(prof)
@@ -2759,7 +2812,13 @@ def run_hosting(dev, groups: int | None = None, puts: int = HOSTING_PUTS,
                                    if e not in kern) / 1e3 / wave_rounds,
                     "member_rounds": wave_rounds}
 
-        lin = linearizable_reads(list(members.values()), acked, reads)
+        leads_read = group_leads(members.values(), groups)
+        lin, lin_retries = linearizable_reads(list(members.values()), acked,
+                                              reads)
+        leads_after = group_leads(members.values(), groups)
+        lead_moves = {
+            "over_profile": leads_moved(leads_profiled, leads_read),
+            "during_reads": leads_moved(leads_read, leads_after)}
 
         # Crash member 3, free its rawnode, restart it on its WAL.
         old = members.pop(3)
@@ -2844,6 +2903,8 @@ def run_hosting(dev, groups: int | None = None, puts: int = HOSTING_PUTS,
                 k: v / max(load_rounds, 1) for k, v in forms.items()},
             wal_fsync_ms=pcts(fsync_s), device_lock_wait_ms=pcts(wait_s),
             linearizable_get_ms=pcts(lin),
+            linearizable_get_retries=lin_retries, profiler_s=prof_s,
+            leaders_moved=lead_moves,
             admin_reads_during_capture=admin_n[0],
             restart_catchup_s=catchup_s,
             crashed_member_bytes_freed=alloc_freed,
@@ -3074,7 +3135,7 @@ def run_chaos(dev, cells=None, shape=None, phase="chaos") -> dict:
 
 # -- phase: hosting_proc (the multi-raft server as worker processes) ---------
 
-HOSTING_PROC_PUTS = 9000  # hosted_bench --n: past the 4 x 1,024 in flight
+HOSTING_PROC_PUTS = 6000  # hosted_bench --n: past the 4 x 1,024 in flight
 
 
 def worker_device(dev) -> "str | None":
@@ -3366,6 +3427,768 @@ def run_rebalance(dev, groups: int | None = None) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase: server (EtcdServer, the etcd v3 server, on the card) --------------
+
+# etcd's documented benchmark (Documentation/op-guide/performance.md,
+# "Benchmarks"): three members, 8-byte sequential keys, 256-byte values,
+# puts through 100 connections, then ranges, linearizable and
+# serializable. Cut: 1,000 clients to 100 (one request in flight each),
+# 100,000 puts to 8,000 (the phase passed 120 s at 10,000; 8,000 still
+# passes the snapshot trigger, 8,192 entries), three processes to one.
+SERVER_CLIENTS = 100
+SERVER_PUTS = 8_000
+SERVER_KEY_BYTES = 8
+SERVER_VALUE_BYTES = 256
+SERVER_RANGES = 1_000       # range requests per consistency
+SERVER_TXNS = 300           # each of these three at most `puts`
+SERVER_DOWN_PUTS = 500      # puts while a follower is down
+SERVER_PROFILE_PUTS = 12    # puts under the profiler (CUPTI slows rounds)
+SERVER_TICK = 0.1           # etcd's default heartbeat interval, 100 ms
+SERVER_SNAP_PUTS = 40       # the small cluster: snapshot_count 16
+SERVER_PARITY_OPS = 40
+LEASE_KEYS = 8
+
+
+class ServerForms:
+    """While installed, every launch of a kernel wrapper outside a CUDA
+    graph capture (each member's first, eager node round, and on the CPU
+    every round) is held against the plain version on a copy of the same
+    inputs; `err` keeps each form's largest |kernel - plain|."""
+
+    def __init__(self):
+        from etcd_tpu_torch.batched import hopper_kernels as hk
+
+        self.hk = hk
+        self.wrappers = {name: getattr(hk, name) for name in (
+            "quorum_commit", "quorum_vote", "term_at_batch")}
+        plain = {"quorum_commit": hk.quorum_commit_ref,
+                 "quorum_vote": hk.quorum_vote_ref,
+                 "term_at_batch": hk.term_at_batch_ref}
+        self.err = {}
+        for name, fn in self.wrappers.items():
+            setattr(hk, name, self._spy(fn, plain[name]))
+
+    def _spy(self, fn, ref):
+        def call(*args):
+            if args[0].is_cuda and torch.cuda.is_current_stream_capturing():
+                return fn(*args)
+            before = collections.Counter(self.hk.FORM_LAUNCHES)
+            copies = [a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args]
+            got = fn(*args)
+            form = "".join(self.hk.FORM_LAUNCHES - before) or (
+                f"{fn.__name__} (plain)")
+            self.err[form] = max(self.err.get(form, 0), assert_equal(
+                f"server {form}", got, ref(*copies)))
+            return got
+        return call
+
+    def remove(self) -> None:
+        for name, fn in self.wrappers.items():
+            setattr(self.hk, name, fn)
+
+
+def instrument_server(s, st: dict) -> None:
+    """Counts member s's node rounds (each ready() that ran one) and
+    records the seconds of each such ready() (the device round, its
+    wait for the device lock and the Ready's translation), of each of
+    its applies and of each WAL fsync."""
+    ready, apply_all, flush = s.node.ready, s._apply_all, s.wal._w.flush
+
+    def counted_ready(timeout=None):
+        t = time.perf_counter()
+        rd = ready(timeout)
+        if rd is not None:
+            st["rounds"] += 1
+            st["ready"].append(time.perf_counter() - t)
+        return rd
+
+    def timed_apply(task):
+        t = time.perf_counter()
+        try:
+            return apply_all(task)
+        finally:
+            st["apply"].append(time.perf_counter() - t)
+
+    def timed_flush(sync=True):
+        t = time.perf_counter()
+        try:
+            return flush(sync=sync)
+        finally:
+            if sync:
+                st["fsync"].append(time.perf_counter() - t)
+
+    s.node.ready, s._apply_all, s.wal._w.flush = (
+        counted_ready, timed_apply, timed_flush)
+
+
+def client_load(clients: list, n: int, op, what: str,
+                timeout: float = 300.0) -> "tuple[list, list, float]":
+    """op(client, i) for i in 0..n-1 over the clients, one request in
+    flight on each: returns each op's seconds, its result and the wall
+    seconds. Any error raises."""
+    import itertools
+
+    counter = itertools.count()
+    lat, res, errs = [0.0] * n, [None] * n, []
+
+    def worker(c):
+        while not errs:
+            i = next(counter)
+            if i >= n:
+                return
+            t = time.perf_counter()
+            try:
+                res[i] = op(c, i)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errs.append((i, repr(e)))
+                return
+            lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=worker, args=(c,), daemon=True)
+               for c in clients]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(max(1.0, timeout - (time.perf_counter() - t0)))
+    wall = time.perf_counter() - t0
+    if errs or any(th.is_alive() for th in threads):
+        raise AssertionError(f"server {what}: {errs[:3] or 'timed out'}")
+    return lat, res, wall
+
+
+def server_kv(s) -> dict:
+    """Member s's whole key space, read serializably on s."""
+    from etcd_tpu_torch.server.api import RangeRequest
+
+    rr = s.range(RangeRequest(key=b"\x00", range_end=b"\xff",
+                              serializable=True))
+    return {kv.key: kv.value for kv in rr.kvs}
+
+
+def server_get(s, key: bytes):
+    """key's value on member s, read serializably on s (None if absent)."""
+    from etcd_tpu_torch.server.api import RangeRequest
+
+    rr = s.range(RangeRequest(key=key, serializable=True))
+    return rr.kvs[0].value if rr.kvs else None
+
+
+def wait_for(pred, what: str, limit: float = 120.0) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"server: {what} timed out")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+class ServerSet:
+    """A port functional.Cluster on `dev`, every member behind a
+    V3RPCServer whose address it publishes (as embed/etcd.py does, so a
+    follower forwards a lease renewal to the leader), each member's node
+    rounds, applies and fsyncs recorded."""
+
+    def __init__(self, tmp: str, dev, **kw):
+        from etcd_tpu_torch.functional import Cluster
+
+        self.stats = {}
+        self.rpcs = {}
+        self.c = Cluster(tmp, n=3, device=dev, **kw)
+        for s in self.c.alive():
+            self._serve(s)
+
+    def _serve(self, s) -> None:
+        from etcd_tpu_torch.v3rpc import V3RPCServer
+
+        st = self.stats.setdefault(s.id, {"rounds": 0, "ready": [],
+                                          "apply": [], "fsync": []})
+        instrument_server(s, st)
+        rpc = self.rpcs[s.id] = V3RPCServer(s, bind=("127.0.0.1", 0))
+        s.publish(f"m{s.id}", ["http://%s:%d" % rpc.addr[:2]])
+
+    def addr(self, mid: int):
+        return self.rpcs[mid].addr
+
+    def rounds(self) -> int:
+        return sum(st["rounds"] for st in self.stats.values())
+
+    def kill(self, mid: int) -> None:
+        self.rpcs.pop(mid).stop()
+        self.c.kill(mid)
+
+    def restart(self, mid: int):
+        s = self.c.restart(mid)
+        self._serve(s)
+        return s
+
+    def close(self) -> None:
+        for rpc in self.rpcs.values():
+            rpc.stop()
+        self.c.close()
+
+
+class KeptLease:
+    """A lease kept alive by the client's own keep-alive loop
+    (Client.lease_keep_alive, a renewal every `interval` s), with each
+    renewal's reply or exception recorded beside its time, and the
+    leader's id and the lease's remaining seconds on the leader's lessor
+    sampled every 0.25 s."""
+
+    def __init__(self, c, cl, ttl: int, interval: float):
+        self.c, self.cl, self.interval = c, cl, interval
+        self.id = cl.lease_grant(ttl=ttl).id
+        self.renewals = []  # (t, the TTL returned or the exception's repr)
+        self.samples = []   # (t, leader id, remaining s on the leader)
+        once = cl.lease_keep_alive_once
+
+        def recorded(lease_id):
+            t = time.perf_counter()
+            try:
+                got = once(lease_id)
+            except BaseException as e:
+                self.renewals.append((t, repr(e)))
+                raise
+            self.renewals.append((t, got))
+            return got
+
+        cl.lease_keep_alive_once = recorded
+        self._stop_keep_alive = cl.lease_keep_alive(self.id, interval=interval)
+        self._done = threading.Event()
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._sampler.start()
+
+    def _sample(self) -> None:
+        while not self._done.wait(0.25):
+            try:
+                lead = self.c.leader()
+                lease = lead.lessor.lookup(self.id) if lead else None
+                self.samples.append((time.perf_counter(),
+                                     lead.id if lead else None,
+                                     lease.remaining() if lease else None))
+            except Exception as e:  # noqa: BLE001 — kept in the record
+                self.samples.append((time.perf_counter(), None, repr(e)))
+
+    def renewed_since(self, t: float) -> int:
+        return sum(1 for at, got in self.renewals
+                   if at >= t and isinstance(got, int))
+
+    def summary(self) -> dict:
+        now = time.perf_counter()
+        ok = [at for at, got in self.renewals if isinstance(got, int)]
+        errors = collections.Counter(got.split("(")[0] + ": " + got[:60]
+                                     for _at, got in self.renewals
+                                     if not isinstance(got, int))
+        leaders = [lid for _t, lid, _r in self.samples]
+        left = [r for _t, _l, r in self.samples if isinstance(r, float)]
+        return {
+            "renewed": len(ok), "errors": dict(errors),
+            "longest_gap_s": max(
+                (b - a for a, b in zip(ok, ok[1:])), default=None),
+            "last_renewal_ago_s": now - self.renewals[-1][0]
+            if self.renewals else None,
+            "leaders": [x for i, x in enumerate(leaders)
+                        if i == 0 or x != leaders[i - 1]],
+            "least_remaining_s": min(left, default=None)}
+
+    def check(self, at, n_keys: int) -> dict:
+        """The lease is alive on the leader (client `at`) with its n_keys
+        keys and the keep-alive loop is still running; else raises with
+        the record's end."""
+        ttl = at.lease_time_to_live(self.id, keys=True)
+        out = self.summary()
+        ago = out["last_renewal_ago_s"]
+        if (ttl.get("ttl", -1) <= 0 or len(ttl.get("keys", [])) != n_keys
+                or ago is None or ago > 4 * self.interval + 2.5):
+            raise AssertionError(
+                f"server: the kept lease {ttl}, its keep-alive {out}, the "
+                f"last renewals {self.renewals[-6:]}, the last samples "
+                f"{self.samples[-6:]}")
+        return out
+
+    def stop(self) -> None:
+        self._stop_keep_alive()
+        self._done.set()
+        self._sampler.join(5)
+
+
+class Oracle:
+    """The plain reference: a dict that replays every acknowledged put
+    in revision order."""
+
+    def __init__(self):
+        self.ops = []  # (revision, key, value)
+
+    def put(self, rev: int, key: bytes, value: bytes) -> None:
+        self.ops.append((rev, key, value))
+
+    def replay(self, removed=()) -> dict:
+        """The acked puts in revision order, then the keys `removed`
+        after all of them (a lease's expiry or revoke)."""
+        writes = [op[:2] for op in self.ops]
+        if len(set(writes)) != len(writes):
+            raise AssertionError("server: a key acked twice at a revision")
+        kv = {}
+        for _rev, key, value in sorted(self.ops):
+            kv[key] = value
+        for key in removed:
+            kv.pop(key, None)
+        return kv
+
+
+def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
+               ranges: int = SERVER_RANGES, tick: float = SERVER_TICK,
+               snap_puts: int = SERVER_SNAP_PUTS) -> dict:
+    """Three port EtcdServers on `dev` in this process at the server's
+    default snapshot_count (the node's ring at W = 32,768), each behind
+    a V3RPCServer, driven by port Clients: a watch on the put range;
+    `puts` puts of sequential 8-byte keys and 256-byte values through
+    `clients` connections to the leader; `ranges` linearizable and
+    `ranges` serializable ranges spread over the members; a txn mix; a
+    lease kept alive and one left to expire with its keys; a compaction
+    and a read below it (ErrCompacted); a lock contended by two clients;
+    a follower stopped and restarted from its WAL; then, on a second
+    cluster with snapshot_count 16, a follower caught up by MsgSnap.
+    Checks every acked put on every member with its bytes, each member's
+    whole KV against the oracle, hash_check, the watch against the acked
+    puts in revision order, and every node form against its plain
+    version. Returns the launches and form launches of the run and its
+    node rounds."""
+    import shutil
+    import tempfile
+
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.batched.graph import device_work
+    from etcd_tpu_torch.client import Client, ClientError
+    from etcd_tpu_torch.client.concurrency import Session
+    from etcd_tpu_torch.functional import hash_check, lease_expire_check
+    from etcd_tpu_torch.server.api import (
+        Compare, CompareResult, CompareTarget, PutRequest, RequestOp,
+        TxnRequest)
+    from etcd_tpu_torch.storage.mvcc import CompactedError
+
+    cuda = dev.type == "cuda"
+    rng = np.random.RandomState(SEED)
+    values = rng.bytes(puts * SERVER_VALUE_BYTES)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-server-")
+    forms = ServerForms()
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    sset = small = None
+    conns = []
+    try:
+        sset = ServerSet(os.path.join(tmp, "main"), dev, tick_interval=tick,
+                         election_tick=10, heartbeat_tick=1)
+        c = sset.c
+        lead = c.wait_leader(60)
+        boot_s = time.perf_counter() - t0
+        stages, t_stage = {}, [time.perf_counter()]
+
+        def stage(name):
+            now = time.perf_counter()
+            stages[name] = now - t_stage[0]
+            t_stage[0] = now
+        window = lead.node.rn.cfg.window
+        oracle = Oracle()
+
+        def client(mid):
+            cl = Client([sset.addr(mid)])
+            conns.append(cl)
+            return cl
+
+        # A watch over the put keys from the first revision to come.
+        watcher = client(lead.id)
+        rev0 = lead.kv.rev()
+        handle = watcher.watch(b"0", b":", start_rev=rev0 + 1)
+        seen = []
+        done = threading.Event()
+        until = [0, float("inf")]  # events expected, the deadline
+
+        def watch_loop():
+            while not (done.is_set() and (
+                    len(seen) >= until[0]
+                    or time.perf_counter() > until[1])):
+                batch = handle.get(timeout=0.5)
+                if batch is not None:
+                    seen.extend(batch[1])
+
+        wth = threading.Thread(target=watch_loop, daemon=True)
+        wth.start()
+
+        # Puts: 8-byte sequential keys, 256-byte values, to the leader.
+        put_conns = [client(lead.id) for _ in range(clients)]
+
+        def put(cl, i):
+            key = b"%0*d" % (SERVER_KEY_BYTES, i)
+            value = values[i * SERVER_VALUE_BYTES:(i + 1) * SERVER_VALUE_BYTES]
+            resp = cl.put(key, value)
+            oracle.put(resp.header.revision, key, value)
+            return resp.header.revision
+
+        leaders = [lead.id]
+        r0 = sset.rounds()
+        put_lat, _, put_s = client_load(put_conns, puts, put, "puts")
+        put_rounds = sset.rounds() - r0
+        leaders.append(c.wait_leader(60).id)
+
+        stage("puts")
+        # Ranges of acked keys, each value held to its bytes: serializable
+        # ones spread over the members, linearizable ones to the leader
+        # (the batched node opens ReadIndex only where it leads: a
+        # follower's read_index raises ProposalDroppedError).
+        spread = [client(1 + i % 3) for i in range(clients)]
+        range_stats = {}
+        for consistency, range_conns in (("linearizable", put_conns),
+                                         ("serializable", spread)):
+            keys = rng.randint(puts, size=ranges)
+
+            def get(cl, i, ser=consistency == "serializable"):
+                k = int(keys[i])
+                rr = cl.get(b"%0*d" % (SERVER_KEY_BYTES, k), serializable=ser)
+                want = values[k * SERVER_VALUE_BYTES:
+                              (k + 1) * SERVER_VALUE_BYTES]
+                if len(rr.kvs) != 1 or rr.kvs[0].value != want:
+                    raise AssertionError(f"range of key {k} read {rr.kvs}")
+
+            lat, _, wall = client_load(range_conns, ranges, get, consistency)
+            range_stats[consistency] = {**pcts(lat), "per_s": ranges / wall}
+
+        stage("ranges")
+        # A txn mix: compare-and-swap on 20 counters, else read.
+        txn_conns = put_conns[:20]
+
+        def txn(cl, i):
+            key = b"txn/%02d" % (i % 20)
+            cur = cl.get(key)
+            version = cur.kvs[0].version if cur.kvs else 0
+            value = b"%d" % i
+            resp = cl.txn(TxnRequest(
+                compare=[Compare(result=CompareResult.EQUAL,
+                                 target=CompareTarget.VERSION, key=key,
+                                 version=version)],
+                success=[RequestOp(request_put=PutRequest(key=key,
+                                                          value=value))],
+                failure=[]))
+            if resp.succeeded:
+                oracle.put(resp.header.revision, key, value)
+            return resp.succeeded
+
+        txns = min(SERVER_TXNS, puts)
+        txn_lat, txn_ok, _ = client_load(txn_conns, txns, txn, "txns")
+
+        stage("txns")
+        # Leases: one left to expire with its keys, one kept alive to the
+        # end of the phase by a client pinned to this member (the watch's
+        # too, which no later stage stops).
+        pinned = lead.id
+        lc = client(pinned)
+        kept = KeptLease(c, lc, ttl=4, interval=0.5)
+        removed = []
+        for name, ttl in ((b"doomed", 5), (b"kept", 0)):
+            lid = lc.lease_grant(ttl=ttl).id if ttl else kept.id
+            if ttl:
+                doomed = lid
+            # One txn puts the lease's keys, one round trip after the
+            # grant, however slow the host.
+            keys = [b"lease/%s/%d" % (name, j) for j in range(LEASE_KEYS)]
+            resp = lc.txn(TxnRequest(compare=[], failure=[], success=[
+                RequestOp(request_put=PutRequest(key=k, value=k, lease=lid))
+                for k in keys]))
+            for k in keys:
+                oracle.put(resp.header.revision, k, k)
+            removed += keys
+        lease_expire_check(c.wait_leader(60), [doomed], removed[:LEASE_KEYS],
+                           timeout=60.0)
+        # The lead moves off the pinned member: from here each renewal
+        # reaches the lessor through a follower, which forwards it to the
+        # leader at the client URL the leader published.
+        old = c.wait_leader(60).id
+        target = next(s.id for s in c.followers() if s.id != pinned)
+        t_move = time.perf_counter()
+        asked = [0.0]  # when the transfer was last asked for
+
+        def transferred():
+            lead = c.leader()
+            if lead is not None and lead.id == target:
+                return True
+            if lead is not None and time.perf_counter() - asked[0] > 2.0:
+                asked[0] = time.perf_counter()
+                lead.node.transfer_leadership(lead.id, target)
+            return False
+
+        wait_for(transferred, "the leader transfer", limit=30.0)
+        t_moved = time.perf_counter()
+        lead = c.wait_leader(60)
+        leaders.append(lead.id)
+        wait_for(lambda: kept.renewed_since(t_moved) >= 3,
+                 "the kept lease's renewals after the transfer", limit=30.0)
+        transfer = {"from": old, "to": target, "s": t_moved - t_move,
+                    "renewals_after": kept.renewed_since(t_moved)}
+
+        stage("leases")
+        # Compaction, and a read below it, on the leader (the batched node
+        # opens ReadIndex only where it leads).
+        compact_rev = lead.kv.rev() - 1
+        cc = client(lead.id)
+        cc.compact(compact_rev)
+        try:
+            cc.get(b"%0*d" % (SERVER_KEY_BYTES, 0), revision=compact_rev - 1)
+            raise AssertionError("server: a read below the compaction")
+        except ClientError as e:
+            if not isinstance(e.as_typed(), CompactedError):
+                raise
+
+        stage("compaction")
+        # A lock contended by two clients.
+        l1, l2 = client(lead.id), client(lead.id)
+        s1, s2 = Session(l1, ttl=30), Session(l2, ttl=30)
+        k1 = l1.lock(b"chip-lock", s1.lease_id)
+        got = []
+        th = threading.Thread(target=lambda: got.append(
+            l2.lock(b"chip-lock", s2.lease_id)), daemon=True)
+        th.start()
+        time.sleep(0.5)
+        if got:
+            raise AssertionError("server: the lock was taken twice")
+        l1.unlock(k1)
+        th.join(30)
+        if not got or got[0] == k1:
+            raise AssertionError(f"server: the second lock holder {got}")
+        l2.unlock(got[0])
+        s1.close()
+        s2.close()
+
+        stage("lock")
+        # A follower stopped, puts while it is down, restarted on its WAL
+        # (not the pinned member: the watch and the kept lease's client
+        # stay connected through it).
+        lead = c.wait_leader(60)
+        victim = next(s.id for s in c.followers() if s.id != pinned)
+        sset.kill(victim)
+        down_conns = [client(lead.id) for _ in range(min(clients, 20))]
+        down = min(SERVER_DOWN_PUTS, puts)
+        _, _, down_s = client_load(
+            down_conns, down,
+            lambda cl, i: put(cl, puts + i), "puts with a member down")
+        t_restart = time.perf_counter()
+        back = sset.restart(victim)
+        last = b"%0*d" % (SERVER_KEY_BYTES, puts + down - 1)
+        catch_up_s = wait_for(lambda: server_get(back, last) is not None,
+                              "the restarted follower's catch-up")
+        restart_s = time.perf_counter() - t_restart
+        leaders.append(c.wait_leader(60).id)
+
+        stage("restart")
+        # Device time and kernels a node round: a wave of puts under the
+        # profiler, which starts and stops under the device lock (C9).
+        device = {"device_ms": "not measured"}
+        wave = min(SERVER_PROFILE_PUTS, puts)
+        prof_conns = [client(c.wait_leader(60).id) for _ in range(wave)]
+        first = puts + down
+        prof_s = {}  # seconds each member's rounds wait on the profiler
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            from etcd_tpu_torch.tools.kernel_times import (
+                _device_us, kernel_events)
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            t = time.perf_counter()
+            with device_work():
+                prof.start()
+            prof_s["start"] = time.perf_counter() - t
+        r1 = sset.rounds()
+        try:
+            client_load(prof_conns, wave, lambda cl, i: put(cl, first + i),
+                        "profiled puts")
+        finally:
+            if cuda:
+                t = time.perf_counter()
+                with device_work():
+                    torch.cuda.synchronize(dev)
+                    prof.stop()
+                prof_s["stop"] = time.perf_counter() - t
+        wave_rounds = sset.rounds() - r1
+        leaders.append(c.wait_leader(60).id)
+        if cuda:
+            ev = kernel_events(prof)
+            kern = [e for e in ev
+                    if not e.key.startswith(("Memcpy", "Memset"))]
+            if kern and wave_rounds:
+                device = {
+                    "device_ms": sum(_device_us(e) for e in kern) / 1e3
+                    / wave_rounds,
+                    "kernels": sum(e.count for e in kern) / wave_rounds,
+                    "copy_ms": sum(_device_us(e) for e in ev
+                                   if e not in kern) / 1e3 / wave_rounds,
+                    "node_rounds": wave_rounds, "profiler_s": prof_s,
+                    "hopper_kernels": {
+                        e.key: {"calls": e.count,
+                                "device_us_per_call": _device_us(e) / e.count}
+                        for e in kern if "quorum_commit_vote" in e.key
+                        or "term_at_batch" in e.key}}
+        total = puts + down + wave
+
+        stage("profile")
+        # The kept lease outlived the compaction, the lock, the restart
+        # and the profiled wave, with its keys.
+        kept_alive = kept.check(client(c.wait_leader(60).id), LEASE_KEYS)
+        kept_alive["alive_s"] = time.perf_counter() - kept.renewals[0][0]
+        kept.stop()
+        lc.lease_revoke(kept.id)
+        # Every acked write on every member, as the oracle has it (the
+        # leases' keys went after all their puts).
+        want = oracle.replay(removed=removed)
+        wait_for(lambda: all(server_kv(s) == want for s in c.alive()),
+                 "every member's KV equal to the oracle", limit=60.0)
+        agreed = hash_check(c.alive())
+        until[:] = [total, time.perf_counter() + 30.0]
+        done.set()
+        wth.join(40)
+        got_puts = [(e.kv.key, e.kv.value, e.kv.mod_revision) for e in seen]
+        want_puts = [(key, value, rev) for rev, key, value in
+                     sorted(oracle.ops) if key[:1].isdigit()]
+        if got_puts != want_puts:
+            raise AssertionError(
+                f"server: the watch saw {len(got_puts)} puts of "
+                f"{len(want_puts)}, or out of order")
+        captures = {s.id: s.node.rn.captures for s in c.alive()}
+        if cuda and set(captures.values()) != {1}:
+            raise AssertionError(f"server: captures per member {captures}")
+        stats = {mid: dict(st) for mid, st in sset.stats.items()}
+        main_rounds = sset.rounds()
+        sset.close()
+        sset = None
+
+        stage("checks")
+        # A lagging member caught up by MsgSnap: snapshot_count 16.
+        small = ServerSet(os.path.join(tmp, "small"), dev,
+                          tick_interval=0.05, snapshot_count=16,
+                          snapshot_catchup_entries=4, request_timeout=25.0)
+        sc = small.c
+        sc.wait_leader(60)
+        behind = next(s for s in sc.followers())
+        behind_id, behind_applied = behind.id, behind.applied_index()
+        small.kill(behind_id)
+        for i in range(snap_puts):
+            sc.wait_leader(60).put(PutRequest(key=b"s%03d" % i,
+                                              value=b"w%d" % i))
+        wait_for(lambda: sc.leader() is not None and int(
+            sc.leader().node.rn.m_snap[0]) > behind_applied,
+            "the small cluster's ring floor passes the follower")
+        floor = int(sc.leader().node.rn.m_snap[0])
+        back = small.restart(behind_id)
+        wait_for(lambda: all(server_get(back, b"s%03d" % i) == b"w%d" % i
+                             for i in range(snap_puts)),
+                 "the MsgSnap catch-up")
+        snap_index = back.snapshotter.load().metadata.index
+        if snap_index < floor:
+            raise AssertionError(f"server: the follower's snapshot at "
+                                 f"{snap_index}, the floor at {floor}")
+        hash_check(sc.alive())
+        small_rounds = small.rounds()
+        small.close()
+        small = None
+
+        stage("msgsnap")
+        rounds = main_rounds + small_rounds
+        launches, form_launches = dict(hk.LAUNCHES), dict(hk.FORM_LAUNCHES)
+        for name, count in launches.items():
+            if count == 0:
+                raise AssertionError(f"{name} was never launched on the "
+                                     "server path")
+        if cuda and not forms.err:
+            raise AssertionError("server: no node form was held to its "
+                                 "plain version")
+        ready_s = [x for st in stats.values() for x in st["ready"]]
+        apply_s = [x for st in stats.values() for x in st["apply"]]
+        fsync_s = [x for st in stats.values() for x in st["fsync"]]
+        log("server", members=3, clients=clients, window=window,
+            config=f"etcd benchmark: {SERVER_KEY_BYTES}-byte sequential keys,"
+            f" {SERVER_VALUE_BYTES}-byte values, tick {tick} s, election "
+            "10 ticks", boot_s=boot_s, puts=puts,
+            puts_per_s=puts / put_s, put_ms=pcts(put_lat),
+            put_node_rounds=put_rounds,
+            ranges=range_stats, txns=txns,
+            txn_succeeded=sum(bool(x) for x in txn_ok), txn_ms=pcts(txn_lat),
+            acked_writes=len(oracle.ops), keys=len(want),
+            puts_total=total, watch_events=len(seen),
+            compacted_at=compact_rev, lease_expired=doomed,
+            lease_kept_alive=kept_alive, leader_transfer=transfer,
+            leaders=leaders,
+            restarted=victim, puts_while_down=down,
+            down_puts_s=down_s, restart_s=restart_s, catch_up_s=catch_up_s,
+            msgsnap={"follower": behind_id, "floor": floor,
+                     "snapshot_index": snap_index, "puts": snap_puts},
+            hash_revision=agreed,
+            ready_ms=pcts(ready_s), apply_ms=pcts(apply_s),
+            fsync_ms=pcts(fsync_s),
+            node_rounds={mid: st["rounds"] for mid, st in stats.items()},
+            device_per_node_round=device,
+            launches=launches,
+            launches_per_server_round={k: v / rounds
+                                       for k, v in launches.items()},
+            form_launches_per_server_round={k: v / rounds for k, v in
+                                            form_launches.items()},
+            forms_held_to_plain=forms.err, captures=captures,
+            stage_s=stages, wall_s=time.perf_counter() - t0,
+            card=smi("name,power.limit") if cuda else str(dev))
+        return {"launches": launches, "forms": form_launches,
+                "rounds": rounds}
+    finally:
+        forms.remove()
+        for cl in conns:
+            cl.close()
+        for s in (sset, small):
+            if s is not None:
+                s.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_server_parity(dev, plain_dev=torch.device("cpu"),
+                      ops: int = SERVER_PARITY_OPS) -> None:
+    """The same scripted request stream (tools/server_script: puts, ranges,
+    txns, deletes, leases, a compaction, a watch), one request at a time
+    to the leader, to a three-member cluster on `dev` and to one on the
+    CPU: every response body equal (header term and member left out) and
+    hash_kv equal at the end."""
+    import shutil
+    import tempfile
+
+    from etcd_tpu_torch.functional import Cluster
+    from etcd_tpu_torch.server import api
+    from etcd_tpu_torch.tools import server_script as ss
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-server-parity-")
+    t0 = time.perf_counter()
+    bodies, hashes = {}, {}
+    try:
+        for label, d in (("dev", dev), ("plain", plain_dev)):
+            c = Cluster(os.path.join(tmp, label), n=3, device=d,
+                        snapshot_count=16, snapshot_catchup_entries=4,
+                        request_timeout=25.0, tick_interval=0.05)
+            try:
+                c.wait_leader(60)
+                bodies[label] = ss.run(c, ss.script(api, SEED, ops),
+                                       watch=True)
+                hashes[label] = ss.final_hash(c)
+            finally:
+                c.close()
+        for j, (a, b) in enumerate(zip(bodies["dev"], bodies["plain"],
+                                       strict=True)):
+            if a != b:
+                raise AssertionError(f"server_parity: response {j} differs:"
+                                     f" {a} vs {b}")
+        if hashes["dev"] != hashes["plain"]:
+            raise AssertionError(f"server_parity: hash_kv {hashes}")
+        log("server_parity", equal=True, requests=len(bodies["dev"]),
+            watch_events=len(bodies["dev"][-1]), hash_kv=hashes["dev"],
+            wall_s=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
@@ -3426,6 +4249,8 @@ def main() -> int:
     timed("chaos_shapes", run_chaos_shapes, dev)
     paths["hosting_proc"] = timed("hosting_proc", run_hosting_proc, dev)
     timed("rebalance", run_rebalance, dev)
+    paths["server"] = timed("server", run_server, dev)
+    timed("server_parity", run_server_parity, dev)
     log("phases", seconds=phase_s)
     print(json.dumps({"kernels": kernel_rows(variants, err, paths)}))
     print(smi("name,power.limit"))

@@ -10,7 +10,12 @@ repository as the reference. The port is self-contained: it imports
     graph of one round on the GPU), the hosted BatchedRawNode and its
     message codec, the device apply plane, the telemetry hub, the
     membership store, and the quorum/ring-term Hopper kernels.
-  - ``etcd_tpu_torch.raft``    — the raft wire types the rawnode uses.
+  - ``etcd_tpu_torch.raft``    — the scalar raft core and its wire types.
+  - ``etcd_tpu_torch.server``  — the etcd v3 server (``EtcdServer``) over
+    ``storage.mvcc``, ``storage.backend``, ``lease``, ``auth`` and
+    ``v2store``, with consensus on the batched node (the GPU by default)
+    or the scalar core; ``v3rpc`` serves it over framed TCP, ``client``
+    speaks to it, ``functional`` runs clusters of it in process.
   - ``etcd_tpu_torch.obs``     — the fleet hub and its frame layout, the
     proposal tracer, its chrome-trace export and cross-member merge.
   - ``etcd_tpu_torch.pkg``, ``storage``, ``native``, ``transport`` — the

@@ -2980,7 +2980,11 @@ class MultiRaftMember:
         (no snapshots ever ride a block)."""
         if self._stopped.is_set():
             return
-        self.rn.step_block(blk)
+        # A member that runs fewer rounds than a peer would queue that
+        # peer's heartbeats without bound, and a ReadIndex on the peer
+        # would wait behind them for seconds: the newest heartbeat for
+        # a row replaces those still queued (rawnode.step_block).
+        self.rn.step_block(blk, supersede_heartbeats=True)
         self._work.set()
 
     # -- API -------------------------------------------------------------------

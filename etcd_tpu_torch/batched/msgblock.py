@@ -426,6 +426,36 @@ def collect_block(out_valid: np.ndarray, out: "object",
     return MsgBlock(rec), (out_valid & ~simple)
 
 
+def _inbox_keys(rec: np.ndarray) -> np.ndarray:
+    """Each record's inbox key (row, sender, lane) as one int64."""
+    return ((rec["row"].astype(np.int64) << 16)
+            | (rec["frm"].astype(np.int64) << 8) | rec["lane"])
+
+
+def drop_superseded(queued, blk: MsgBlock, types) -> List[MsgBlock]:
+    """The queued blocks without each record of a type in `types` whose
+    inbox key a record of such a type in `blk` also holds. merge_blocks
+    lands one record per key a round, so a receiver that runs fewer
+    rounds than its sender would otherwise queue heartbeats without
+    bound, each newer one (and the ReadIndex ack it carries) waiting
+    behind every older one. A newer heartbeat from the same sender
+    carries all an older one does: a term and a commit no lower, the
+    pending read's seq; a newer response echoes a newer heartbeat. Raft
+    tolerates the loss of the older ones."""
+    new = np.isin(blk.rec["type"], types)
+    if not new.any() or not queued:
+        return list(queued)
+    keys = _inbox_keys(blk.rec[new])
+    out = []
+    for q in queued:
+        drop = np.isin(q.rec["type"], types) & np.isin(_inbox_keys(q.rec),
+                                                        keys)
+        if drop.all():
+            continue
+        out.append(q.take(~drop) if drop.any() else q)
+    return out
+
+
 def merge_blocks(
     blocks: List[MsgBlock],
     num_replicas: int,

@@ -80,6 +80,7 @@ from .graph import RoundGraphs, device_work, storages, write_back
 from .msgblock import (
     MsgBlock,
     compact_records,
+    drop_superseded,
     merge_blocks,
     ragged_ranges,
     validate_block,
@@ -739,7 +740,8 @@ class BatchedRawNode:
         with self._lock:
             self._pending.setdefault((row, from_slot, lane), deque()).append(m)
 
-    def step_block(self, blk: MsgBlock) -> None:
+    def step_block(self, blk: MsgBlock,
+                   supersede_heartbeats: bool = False) -> None:
         """Stage a batch of payload-free inbound messages (the SoA wire
         fast path — see msgblock.py). One lock acquisition per batch.
 
@@ -747,12 +749,19 @@ class BatchedRawNode:
         otherwise crash the round (IndexError in _build_inbox) or
         scatter a forged message into another group's inbox slot via
         negative flat-index wraparound. Invalid records are dropped,
-        matching the object path's corrupt-frame-drop semantics."""
+        matching the object path's corrupt-frame-drop semantics.
+
+        With `supersede_heartbeats`, a heartbeat or heartbeat response
+        in `blk` drops those still queued for its (row, sender, lane)
+        (msgblock.drop_superseded)."""
         blk = validate_block(blk, self.n, self.cfg.num_replicas,
                              self.cfg.max_ents_per_msg)
         if len(blk) == 0:
             return
         with self._lock:
+            if supersede_heartbeats and self._blocks:
+                self._blocks = deque(drop_superseded(
+                    self._blocks, blk, (T_HB, T_HB_RESP)))
             self._blocks.append(blk)
 
     def install_snapshot_state(self, row: int, index: int,

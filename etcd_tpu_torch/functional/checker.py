@@ -1,22 +1,30 @@
-"""Checkers: post-fault invariants for the batched multi-raft hosts
-(ref: tests/functional/tester/checker_kv_hash.go; cluster consistency
-= same KV hash at the same applied index across members).
+"""Checkers: post-fault invariants
+(ref: tests/functional/tester/checker_kv_hash.go, checker_lease_expire.go,
+checker_no_check.go; cluster consistency = same KV hash at the same
+revision across members).
 
-Ports the multi-raft half of ``etcd_tpu/functional/checker.py``:
-``multiraft_hash_check``, ``committed_never_lost``,
-``check_leader_claims``, ``check_config_safety``,
-``check_durability_envelope`` and ``check_sequential_history`` over
-``MultiRaftMember``-shaped hosts, duck-typed on ``.kvs`` /
-``.applied_index`` so this module never imports the batched engine.
-The server half (``hash_check``, ``lease_expire_check``,
-``linearizable_check``) waits for the server stack (ROADMAP A16).
-tests/test_torch_hosting.py pins each function to the reference's."""
+Two families share the converge-then-assert skeleton (`_converge`):
+
+* the single-group server checkers (`hash_check`, `lease_expire_check`,
+  `linearizable_check`) over ``EtcdServer`` members, and
+* the batched multi-raft checkers (`multiraft_hash_check`,
+  `committed_never_lost`, `check_leader_claims`,
+  `check_sequential_history`) over ``MultiRaftMember``-shaped hosts —
+  duck-typed on ``.kvs`` / ``.applied_index`` so this module never
+  imports the batched engine.
+
+Ports ``etcd_tpu/functional/checker.py``; tests/test_torch_server_pins.py
+pins each function to the reference's.
+"""
 
 from __future__ import annotations
 
 import time
 import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..server import EtcdServer
+from ..server.api import RangeRequest
 
 
 def _converge(poll: Callable[[], Tuple[bool, object]], timeout: float,
@@ -36,6 +44,46 @@ def _converge(poll: Callable[[], Tuple[bool, object]], timeout: float,
             last = e
         time.sleep(interval)
     raise AssertionError(f"{desc} after {timeout}s: {last}")
+
+
+def hash_check(servers: List[EtcdServer], timeout: float = 20.0) -> int:
+    """All members converge to the same hash_kv at the same revision
+    (checker_kv_hash.go waits up to 7 rounds). Returns the agreed rev."""
+
+    def poll():
+        # Pin the comparison at the smallest current revision.
+        rev = min(s.kv.rev() for s in servers)
+        hashes = {s.hash_kv(rev)[0] for s in servers}
+        return len(hashes) == 1, rev if len(hashes) == 1 else hashes
+
+    return _converge(poll, timeout, "kv hash mismatch")
+
+
+def lease_expire_check(server: EtcdServer, lease_ids: List[int],
+                       keys: List[bytes], timeout: float = 30.0) -> None:
+    """Expired leases are gone and their keys deleted
+    (checker_lease_expire.go)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        alive = set(server.lease_leases())
+        if not (alive & set(lease_ids)):
+            break
+        time.sleep(0.1)
+    else:
+        raise AssertionError("leases did not expire")
+    for key in keys:
+        rr = server.range(RangeRequest(key=key, serializable=True))
+        assert not rr.kvs, f"leased key {key!r} survived expiry"
+
+
+def linearizable_check(server: EtcdServer, key: bytes,
+                       expect_value: bytes) -> None:
+    """A linearizable read observes the latest committed write."""
+    rr = server.range(RangeRequest(key=key))
+    assert rr.kvs and rr.kvs[0].value == expect_value, (
+        f"linearizable read saw {rr.kvs[0].value if rr.kvs else None!r}, "
+        f"want {expect_value!r}"
+    )
 
 
 # -- batched multi-raft checkers -----------------------------------------------

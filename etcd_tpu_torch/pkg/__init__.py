@@ -1,6 +1,9 @@
-"""Support libraries (ports the part of ``etcd_tpu/pkg`` that the WAL and
-the hosting layer need: the metrics registry, failpoints, the shared
-error types and the one boolean env-knob parse)."""
+"""Support libraries (ports the part of ``etcd_tpu/pkg`` that the WAL, the
+hosting layer and the server need: the metrics registry, failpoints, the
+shared error types, the boolean env-knob parse, the id→event wait
+registry, the FIFO apply scheduler, the request-id generator, the
+interval tree and ordered-map fallback, heartbeat-contention detection,
+the RPC error table and the TLS helpers)."""
 
 import os as _os
 

@@ -1,3 +1,4 @@
-"""Durable storage: the WAL, snapshot files and the Storage facade that
-raftexample persists through (ports the part of ``etcd_tpu/storage``
-that raftexample uses)."""
+"""Durable storage: the WAL, snapshot files, the Storage facade, the
+sqlite backend and the MVCC store.
+
+Ports ``etcd_tpu/storage/__init__.py``."""

@@ -883,3 +883,109 @@ def test_shapes_phase_at_a_small_width(dev):
     out = chip_smoke.run_shapes(dev, groups=512)
     assert set(out) == {"shapes_lanes", "shapes_merged", "shapes_vectorized"}
     assert all(min(p["launches"].values()) > 0 for p in out.values())
+
+
+# -- the etcd server on the card ---------------------------------------------------
+
+
+def _server_cluster(path, device, **kw):
+    from etcd_tpu_torch.functional import Cluster
+
+    return Cluster(str(path), n=3, device=device, snapshot_count=16,
+                   snapshot_catchup_entries=4, request_timeout=25.0,
+                   tick_interval=0.05, **kw)
+
+
+def test_server_cluster_on_cuda_equals_cpu(dev, tmp_path):
+    """Three port EtcdServers on the card and three on the CPU answer the
+    same scripted stream (puts, ranges, txns, deletes, leases, a
+    compaction, a watch) with equal bodies and end at the same hash_kv."""
+    from etcd_tpu_torch.server import api
+    from etcd_tpu_torch.tools import server_script as ss
+
+    out = {}
+    for label, d in (("cuda", dev), ("cpu", "cpu")):
+        c = _server_cluster(tmp_path / label, d)
+        try:
+            c.wait_leader(60)
+            out[label] = (ss.run(c, ss.script(api, 7, 40), watch=True),
+                          ss.final_hash(c))
+            if label == "cuda":
+                assert {s.node.rn.device.type for s in c.alive()} == {"cuda"}
+        finally:
+            c.close()
+    assert out["cuda"] == out["cpu"]
+
+
+def test_server_node_round_is_one_graph_replay(dev, tmp_path):
+    """Each member's node round on the card is one replay of its own CUDA
+    graph: one capture per member, and the launches a round are the
+    captured round's (B1 15, B2 16 at R = 3)."""
+    from etcd_tpu_torch.server.api import PutRequest
+
+    c = _server_cluster(tmp_path, dev)
+    try:
+        lead = c.wait_leader(60)
+        for i in range(20):
+            lead.put(PutRequest(key=b"g%d" % i, value=b"v"))
+        rounds = {}
+        for s in c.alive():
+            ready = s.node.ready
+
+            def counted(timeout=None, _r=ready, _id=s.id):
+                rd = _r(timeout)
+                if rd is not None:
+                    rounds[_id] = rounds.get(_id, 0) + 1
+                return rd
+            s.node.ready = counted
+        hk.reset_launches()
+        for i in range(20):
+            lead.put(PutRequest(key=b"h%d" % i, value=b"v"))
+        launches = dict(hk.LAUNCHES)
+        n = sum(rounds.values())
+        assert {s.node.rn.captures for s in c.alive()} == {1}
+        for s in c.alive():
+            for _graph, made in s.node.rn._graphs._graphs.values():
+                assert made["kernels"] == {"quorum_commit_vote": 15,
+                                           "term_at_batch": 16}
+        # Every round adds its graph's launches whole: the replays
+        # counted are the rounds the members ran (a round in flight at
+        # either end may fall on one side of the count).
+        replays = launches["quorum_commit_vote"] // 15
+        assert launches["quorum_commit_vote"] == 15 * replays
+        assert launches["term_at_batch"] == 16 * replays
+        assert n > 0 and abs(replays - n) <= 3, (replays, n)
+    finally:
+        c.close()
+
+
+def test_server_restart_from_the_wal_on_the_card(dev, tmp_path):
+    """A follower stopped and restarted on its WAL on the card catches
+    up, captures its graph anew, and the members agree on hash_kv."""
+    from etcd_tpu_torch.functional import hash_check
+    from etcd_tpu_torch.server.api import PutRequest, RangeRequest
+
+    c = _server_cluster(tmp_path, dev)
+    try:
+        lead = c.wait_leader(60)
+        for i in range(5):
+            lead.put(PutRequest(key=b"k%d" % i, value=b"v%d" % i))
+        victim = c.followers()[0].id
+        c.kill(victim)
+        c.wait_leader(60).put(PutRequest(key=b"after", value=b"kill"))
+        s = c.restart(victim)
+        deadline = time.monotonic() + 60
+        while not s.range(RangeRequest(key=b"after",
+                                       serializable=True)).kvs:
+            assert time.monotonic() < deadline, "no catch-up"
+            time.sleep(0.02)
+        assert s.node.rn.device.type == "cuda" and s.node.rn.captures == 1
+        hash_check(c.alive())
+    finally:
+        c.close()
+
+
+def test_server_phase_at_a_small_size(dev):
+    """chip_smoke's server phase at 200 puts through 20 connections."""
+    out = chip_smoke.run_server(dev, puts=200, clients=20, ranges=100)
+    assert all(v > 0 for v in out["launches"].values())

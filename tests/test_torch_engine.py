@@ -144,7 +144,9 @@ def test_port_imports_no_jax():
     membership store, the wire codec, the hosting stack, the shm fabric,
     the chaos harness, the checkers, the worker process and its admin
     server, the rebalancer and the tools that drive them, the scalar
-    raft core, the shadow cluster and its lockstep tool among them),
+    raft core, the shadow cluster and its lockstep tool, the etcd server
+    with its MVCC store, lessor, auth, v2 store, RPC service and client
+    among them),
     building and loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
@@ -181,7 +183,16 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.raft.node", "etcd_tpu_torch.raft.log",
           "etcd_tpu_torch.raft.logger", "etcd_tpu_torch.raft.read_only",
           "etcd_tpu_torch.raft.util", "etcd_tpu_torch.batched.shadow",
-          "etcd_tpu_torch.tools.shadow_lockstep"):
+          "etcd_tpu_torch.tools.shadow_lockstep",
+          "etcd_tpu_torch.server.server", "etcd_tpu_torch.server.apply",
+          "etcd_tpu_torch.storage.mvcc.watchable",
+          "etcd_tpu_torch.storage.backend", "etcd_tpu_torch.lease.lessor",
+          "etcd_tpu_torch.auth.store", "etcd_tpu_torch.v2store.store",
+          "etcd_tpu_torch.v3rpc.service", "etcd_tpu_torch.client.client",
+          "etcd_tpu_torch.client.concurrency",
+          "etcd_tpu_torch.embed.config", "etcd_tpu_torch.pkg.rpctypes",
+          "etcd_tpu_torch.functional.cluster",
+          "etcd_tpu_torch.tools.server_script"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))

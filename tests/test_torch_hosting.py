@@ -1,7 +1,7 @@
 """PyTorch port ↔ JAX reference: the in-process hosting stack.
 
-- The copies (hosting.py, shmfabric.py, faults.py, the multi-raft half
-  of functional/checker.py, pkg's env_flag) are pinned to etcd_tpu's by
+- The copies (hosting.py, shmfabric.py, faults.py, functional/checker.py,
+  pkg's env_flag) are pinned to etcd_tpu's by
   their syntax tree, definition by definition; each allowed difference
   is listed and normalized away before the comparison.
 - Lockstep differential: three etcd_tpu members and three port members
@@ -147,11 +147,6 @@ def _any(*preds):
     return lambda s: any(p(s) for p in preds)
 
 
-def _is_server_import(s):
-    return isinstance(s, ast.ImportFrom) and (s.module or "").startswith(
-        "server")
-
-
 # Per copied module: (reference path, port path, definitions the port
 # leaves out, {definition: (reference normalizer, port normalizer)}).
 _DEVICE = _Normalize(args=("device",), stmt=_any(
@@ -159,21 +154,22 @@ _DEVICE = _Normalize(args=("device",), stmt=_any(
 _MESH = _Normalize(args=("mesh",), stmt=_any(
     _is_if_on("mesh_devices"), _assigns("mesh")))
 _SAME = _Normalize()
+# The port's members drop queued heartbeats a newer one supersedes
+# (ROADMAP C15).
+_SUPERSEDE = _Normalize(args=("supersede_heartbeats",))
 PINS = {
     "batched/hosting.py": ("batched/hosting.py", (), {
         "<module>": (_SAME, _DEVICE),
         "MultiRaftMember.__init__": (_MESH, _DEVICE),
         "MultiRaftCluster.__init__": (_SAME, _DEVICE),
+        "MultiRaftMember.deliver_block": (_SAME, _SUPERSEDE),
     }),
     "batched/shmfabric.py": ("batched/shmfabric.py", (), {}),
     "batched/faults.py": ("batched/faults.py", (), {
         "ChaosHarness.__init__": (_SAME, _DEVICE),
         "ChaosHarness._boot": (_SAME, _DEVICE),
     }),
-    "functional/checker.py": ("functional/checker.py", (
-        "hash_check", "lease_expire_check", "linearizable_check"), {
-        "<module>": (_Normalize(stmt=_is_server_import), _SAME),
-    }),
+    "functional/checker.py": ("functional/checker.py", (), {}),
     "pkg/__init__.py": ("pkg/__init__.py", (), {}),
 }
 
@@ -188,8 +184,7 @@ def _dump(node):
 def test_copy_is_the_reference_code(rel):
     """Every definition of the port's copy equals etcd_tpu's; the listed
     ones equal it once the listed differences (device=, the mesh
-    refusal, the server half) are normalized away; nothing else is
-    missing or extra."""
+    refusal) are normalized away; nothing else is missing or extra."""
     port_rel, left_out, allowed = PINS[rel]
     ref = defs_of(os.path.join(ROOT, "etcd_tpu", rel))
     port = defs_of(os.path.join(ROOT, "etcd_tpu_torch", port_rel))

@@ -335,3 +335,36 @@ def test_block_messages_equal(seed):
         assert jr == tr
         assert isinstance(b, ttypes.Message)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_drop_superseded_keeps_all_but_older_heartbeats(seed):
+    """A port-only step of hosting's ingest (ROADMAP C15): each queued
+    MsgHeartbeat / MsgHeartbeatResp whose (row, sender, lane) a
+    heartbeat of the arriving block also holds goes; every other record
+    stays, in order, with its entries. Held against a plain loop over
+    the records, for a random arriving block and for one made of the
+    first queued block's heartbeats."""
+    rng = np.random.RandomState(seed)
+    queued = [blocks_of(random_arrays(rng, 40))[1] for _ in range(3)]
+    hb = (tstep.T_HB, tstep.T_HB_RESP)
+
+    def key(r):
+        return (int(r["row"]), int(r["frm"]), int(r["lane"]))
+
+    mine = queued[0].take(np.isin(queued[0].rec["type"], hb))
+    assert len(mine), seed
+    for new in (blocks_of(random_arrays(rng, 20))[1], mine):
+        newer = {key(r) for r in new.rec if r["type"] in hb}
+        want = [[i for i, r in enumerate(q.rec)
+                 if not (r["type"] in hb and key(r) in newer)]
+                for q in queued]
+        got = tmb.drop_superseded(queued, new, hb)
+        kept = [(q, w) for q, w in zip(queued, want) if w]
+        assert len(got) == len(kept), seed
+        for g, (q, w) in zip(got, kept):
+            assert_blocks_equal(g, q.take(np.array(w, np.int64)), seed)
+    assert len(got[0]) == len(queued[0]) - len(mine), seed
+    # A block with no heartbeat drops nothing.
+    quiet = queued[1].take(~np.isin(queued[1].rec["type"], hb))
+    assert tmb.drop_superseded(queued, quiet, hb) == queued
