@@ -53,12 +53,19 @@ rebalancerd over three workers with every group on one member; the
 limp-eviction episode over CUDA members in this process), then runs the
 etcd server (three EtcdServers on the card, each behind a V3RPCServer,
 driven by 100 client connections: etcd's documented benchmark cut to
-8,000 puts of 8-byte keys and 256-byte values, ranges of both
+1,000 puts of 8-byte keys and 256-byte values, ranges of both
 consistencies, a txn mix, leases, a watch, a compaction, a contended
 lock, a follower restarted on its WAL, a MsgSnap catch-up; every acked
 put read back on every member, the KV against a dict oracle, hash_check,
-every node form against its plain version) and holds servers on CUDA
-against servers on the CPU response for response.
+every node form against its plain version), holds servers on CUDA
+against servers on the CPU response for response, and boots etcd's own
+deployment (three `python -m etcd_tpu_torch` member processes on the
+card at etcd's defaults, loaded by the port's etcd benchmark tool from a
+process of its own: puts, then ranges of both consistencies at every
+member; every acked put read back on every member, hash_kv, a kill -9
+of the leader and its restart, a snapshot restored by the port's
+etcdutl into a solo member on the card; each member's launches from its
+orderly stop).
 Each phase prints one line; any failure raises and the script exits
 non-zero. It needs CUDA: without it, it prints no result and exits
 non-zero.
@@ -69,12 +76,13 @@ counts launches per kernel and per form), a line with each phase's wall
 seconds, then a JSON line {"kernels": [...]} with every kernel's
 launches on each path (the engine's, each deliver shape's, the hosted
 one, the plane-on hosted one, the node's, raftexample's, the hosting
-server's and its worker processes', the etcd server's, each counted
-from 0 around its run), at its most launched engine form its device
-time warm and cold, plain-version time and bound, and every form with
-its launches per engine round (under each deliver shape), rawnode, node,
-server (one member's node round) and hosting member round (in process
-and in a worker); then the card's name and
+server's and its worker processes', the etcd server's, the booted
+members', each counted from 0 around its run), at its most launched
+engine form its device time warm and cold, plain-version time and bound,
+and every form with its launches per engine round (under each deliver
+shape), rawnode, node, server and booted member (one member's node
+round) and hosting member round (in process and in a worker); then the
+card's name and
 power limit as nvidia-smi reports them; then, last,
 {"ok": true, "device": {...}}.
 """
@@ -214,7 +222,8 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
                   key=lambda v: paths["slice"]["forms"].get(v["form"], 0))
         forms = []
         for v in mine:
-            path_rounds = ({"node": "node", "server": "server"}
+            path_rounds = ({"node": "node", "server": "server",
+                            "boot": "boot"}
                            if v["n"] == 1 else
                            {"hosting": "hosting",
                             "hosting_proc": "hosting_proc"}
@@ -562,6 +571,9 @@ def run_planes(dev, base_device_ms: float) -> None:
 
 
 SHAPES = ("lanes", "merged", "vectorized")
+# Groups of the parity and plane_parity phases (their schedules are the
+# same at any width).
+PARITY_GROUPS = 128
 # Rounds of the parity schedule per deliver shape: the sender scans' eager
 # CPU round is ~3x the vectorized one's, so they stop 4 rounds into the
 # schedule's partition window (rounds 20-35).
@@ -574,7 +586,7 @@ def run_parity(dev, plain_dev=torch.device("cpu"), shapes=SHAPES) -> None:
     deliver shape; every state field and the outbox are equal after
     every round."""
     for shape in shapes:
-        for label, base in parity_configs(256).items():
+        for label, base in parity_configs(PARITY_GROUPS).items():
             parity_run(base._replace(deliver_shape=shape), label, dev,
                        plain_dev, PARITY_ROUNDS[shape])
 
@@ -1821,11 +1833,12 @@ def plane_beside_capture(cfg, dev, rounds: int = 12) -> dict:
 
 def run_plane_parity(dev, plain_dev=torch.device("cpu")) -> None:
     """Plane-on members on `dev` (on CUDA: a graph replay per round and
-    per plane dispatch) against plane-on members on the CPU, G=256, in
-    the bench and prevote_cq configs; then a dispatch and captures in a
-    thread beside another member set's first captures."""
-    for label, base in parity_configs(256).items():
-        cfg = plane_config(256, base)
+    per plane dispatch) against plane-on members on the CPU, G =
+    PARITY_GROUPS, in the bench and prevote_cq configs; then a dispatch
+    and captures in a thread beside another member set's first
+    captures."""
+    for label, base in parity_configs(PARITY_GROUPS).items():
+        cfg = plane_config(PARITY_GROUPS, base)
         sets = [hosted_members(cfg, dev), hosted_members(cfg, plain_dev)]
         res = hosted_lockstep(cfg, sets, 40, label, schedule=plane_schedule,
                               check=assert_planes_equal)
@@ -1835,9 +1848,10 @@ def run_plane_parity(dev, plain_dev=torch.device("cpu")) -> None:
         if not (stats["puts"] and stats["dels"] and stats["expired"]
                 and stats["watch_events"]):
             raise AssertionError(f"plane_parity {label}: idle plane {stats}")
-        log("plane_parity", config=label, groups=256, equal=True, **res,
-            plane_stats_member_1=stats)
-    cfg = plane_config(256, parity_configs(256)["prevote_cq"])
+        log("plane_parity", config=label, groups=PARITY_GROUPS, equal=True,
+            **res, plane_stats_member_1=stats)
+    cfg = plane_config(PARITY_GROUPS, parity_configs(PARITY_GROUPS)[
+        "prevote_cq"])
     log("plane_parity", case="dispatch and capture beside a capture",
         **plane_beside_capture(cfg, dev))
 
@@ -3433,13 +3447,22 @@ def run_rebalance(dev, groups: int | None = None) -> dict:
 # "Benchmarks"): three members, 8-byte sequential keys, 256-byte values,
 # puts through 100 connections, then ranges, linearizable and
 # serializable. Cut: 1,000 clients to 100 (one request in flight each),
-# 100,000 puts to 8,000 (the phase passed 120 s at 10,000; 8,000 still
-# passes the snapshot trigger, 8,192 entries), three processes to one.
+# 100,000 puts to 1,000 (the boot phase carries the benchmark's load),
+# three processes to one. The members' ring keeps the default
+# snapshot_count's width, W = 32,768, and after boot each member snapshots
+# past SERVER_SNAP_COUNT entries above its ring floor and compacts to
+# SERVER_SNAP_CATCHUP entries below its applied index (the ring's width
+# follows the snapshot_count a server boots with; its trigger is read at
+# every apply), so the phase compacts the full-width ring and restarts a
+# follower from a snapshot and its WAL's tail.
 SERVER_CLIENTS = 100
-SERVER_PUTS = 8_000
+SERVER_PUTS = 1_000
+SERVER_SNAP_COUNT = 800
+SERVER_SNAP_CATCHUP = 600   # above SERVER_DOWN_PUTS: the restarted
+                            # follower catches up from the leader's log
 SERVER_KEY_BYTES = 8
 SERVER_VALUE_BYTES = 256
-SERVER_RANGES = 1_000       # range requests per consistency
+SERVER_RANGES = 500         # range requests per consistency
 SERVER_TXNS = 300           # each of these three at most `puts`
 SERVER_DOWN_PUTS = 500      # puts while a follower is down
 SERVER_PROFILE_PUTS = 12    # puts under the profiler (CUPTI slows rounds)
@@ -3590,11 +3613,15 @@ class ServerSet:
     follower forwards a lease renewal to the leader), each member's node
     rounds, applies and fsyncs recorded."""
 
-    def __init__(self, tmp: str, dev, **kw):
+    def __init__(self, tmp: str, dev, snapshots=None, **kw):
+        """`snapshots`: (snapshot_count, snapshot_catchup_entries) set on
+        every member once it has booted (its ring's width is the one its
+        own configuration gives)."""
         from etcd_tpu_torch.functional import Cluster
 
         self.stats = {}
         self.rpcs = {}
+        self.snapshots = snapshots
         self.c = Cluster(tmp, n=3, device=dev, **kw)
         for s in self.c.alive():
             self._serve(s)
@@ -3605,6 +3632,9 @@ class ServerSet:
         st = self.stats.setdefault(s.id, {"rounds": 0, "ready": [],
                                           "apply": [], "fsync": []})
         instrument_server(s, st)
+        if self.snapshots:
+            (s.cfg.snapshot_count,
+             s.cfg.snapshot_catchup_entries) = self.snapshots
         rpc = self.rpcs[s.id] = V3RPCServer(s, bind=("127.0.0.1", 0))
         s.publish(f"m{s.id}", ["http://%s:%d" % rpc.addr[:2]])
 
@@ -3739,16 +3769,19 @@ class Oracle:
 
 def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
                ranges: int = SERVER_RANGES, tick: float = SERVER_TICK,
-               snap_puts: int = SERVER_SNAP_PUTS) -> dict:
+               snap_puts: int = SERVER_SNAP_PUTS,
+               snapshots=(SERVER_SNAP_COUNT, SERVER_SNAP_CATCHUP)) -> dict:
     """Three port EtcdServers on `dev` in this process at the server's
-    default snapshot_count (the node's ring at W = 32,768), each behind
+    default snapshot_count (the node's ring at W = 32,768), each then
+    snapshotting as `snapshots` (count, catch-up entries) says, each behind
     a V3RPCServer, driven by port Clients: a watch on the put range;
     `puts` puts of sequential 8-byte keys and 256-byte values through
     `clients` connections to the leader; `ranges` linearizable and
     `ranges` serializable ranges spread over the members; a txn mix; a
     lease kept alive and one left to expire with its keys; a compaction
     and a read below it (ErrCompacted); a lock contended by two clients;
-    a follower stopped and restarted from its WAL; then, on a second
+    a follower stopped and restarted from its snapshot and its WAL's
+    tail (the leader's ring compacted before); then, on a second
     cluster with snapshot_count 16, a follower caught up by MsgSnap.
     Checks every acked put on every member with its bytes, each member's
     whole KV against the oracle, hash_check, the watch against the acked
@@ -3778,8 +3811,9 @@ def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
     sset = small = None
     conns = []
     try:
-        sset = ServerSet(os.path.join(tmp, "main"), dev, tick_interval=tick,
-                         election_tick=10, heartbeat_tick=1)
+        sset = ServerSet(os.path.join(tmp, "main"), dev, snapshots=snapshots,
+                         tick_interval=tick, election_tick=10,
+                         heartbeat_tick=1)
         c = sset.c
         lead = c.wait_leader(60)
         boot_s = time.perf_counter() - t0
@@ -3833,13 +3867,11 @@ def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
         leaders.append(c.wait_leader(60).id)
 
         stage("puts")
-        # Ranges of acked keys, each value held to its bytes: serializable
-        # ones spread over the members, linearizable ones to the leader
-        # (the batched node opens ReadIndex only where it leads: a
-        # follower's read_index raises ProposalDroppedError).
+        # Ranges of acked keys, each value held to its bytes, spread over
+        # the members (a follower asks the leader for the read index).
         spread = [client(1 + i % 3) for i in range(clients)]
         range_stats = {}
-        for consistency, range_conns in (("linearizable", put_conns),
+        for consistency, range_conns in (("linearizable", spread),
                                          ("serializable", spread)):
             keys = rng.randint(puts, size=ranges)
 
@@ -3927,8 +3959,7 @@ def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
                     "renewals_after": kept.renewed_since(t_moved)}
 
         stage("leases")
-        # Compaction, and a read below it, on the leader (the batched node
-        # opens ReadIndex only where it leads).
+        # Compaction, and a read below it, on the leader.
         compact_rev = lead.kv.rev() - 1
         cc = client(lead.id)
         cc.compact(compact_rev)
@@ -3960,11 +3991,19 @@ def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
         s2.close()
 
         stage("lock")
-        # A follower stopped, puts while it is down, restarted on its WAL
-        # (not the pinned member: the watch and the kept lease's client
-        # stay connected through it).
+        # A follower stopped, puts while it is down, restarted on its
+        # snapshot and its WAL's tail (not the pinned member: the watch and
+        # the kept lease's client stay connected through it). The leader
+        # has compacted its full-width ring.
         lead = c.wait_leader(60)
+        lead_floor = int(lead.node.rn.m_snap[0])
         victim = next(s.id for s in c.followers() if s.id != pinned)
+        victim_snap = c.servers[victim].snapshotter.load().metadata.index
+        if lead_floor <= 1 or victim_snap == 0:
+            raise AssertionError(
+                f"server: no snapshot at W = {window} before the restart "
+                f"(the leader's ring floor {lead_floor}, the follower's "
+                f"snapshot {victim_snap})")
         sset.kill(victim)
         down_conns = [client(lead.id) for _ in range(min(clients, 20))]
         down = min(SERVER_DOWN_PUTS, puts)
@@ -3973,6 +4012,11 @@ def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
             lambda cl, i: put(cl, puts + i), "puts with a member down")
         t_restart = time.perf_counter()
         back = sset.restart(victim)
+        booted_floor = int(back.node.rn.m_snap[0])
+        if booted_floor < victim_snap:
+            raise AssertionError(
+                f"server: the restarted follower's ring floor {booted_floor}"
+                f", its snapshot {victim_snap}")
         last = b"%0*d" % (SERVER_KEY_BYTES, puts + down - 1)
         catch_up_s = wait_for(lambda: server_get(back, last) is not None,
                               "the restarted follower's catch-up")
@@ -4118,6 +4162,8 @@ def run_server(dev, puts: int = SERVER_PUTS, clients: int = SERVER_CLIENTS,
             lease_kept_alive=kept_alive, leader_transfer=transfer,
             leaders=leaders,
             restarted=victim, puts_while_down=down,
+            snapshot_count=snapshots[0], leader_ring_floor=lead_floor,
+            restarted_from_snapshot=victim_snap,
             down_puts_s=down_s, restart_s=restart_s, catch_up_s=catch_up_s,
             msgsnap={"follower": behind_id, "floor": floor,
                      "snapshot_index": snap_index, "puts": snap_puts},
@@ -4189,6 +4235,254 @@ def run_server_parity(dev, plain_dev=torch.device("cpu"),
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase: boot (python -m etcd_tpu_torch members; etcd's benchmark tool) ----
+
+
+BOOT_PUTS = 3_000           # the benchmark tool's puts (etcd's: 100,000)
+BOOT_CLIENTS = 100
+BOOT_RANGES = 500           # the tool's ranges, a consistency a member
+                            # (5 a connection, so p99 is the 5th worst)
+BOOT_CHECKED = 500          # puts of distinct keys and random values, each
+                            # read back on every member
+BOOT_CHECK_CLIENTS = 20
+
+
+def bench_tool(endpoint: str, device, *args) -> dict:
+    """One run of `python -m etcd_tpu_torch.tools.benchmark` in its own
+    process against `endpoint`, with BOOT_CLIENTS connections: its
+    requests, errors, throughput and latency percentiles as it printed
+    them. Any error, or fewer requests than asked, raises."""
+    import re
+
+    from etcd_tpu_torch.tools.member_procs import member_env
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "etcd_tpu_torch.tools.benchmark",
+         "--endpoints", endpoint, "--clients", str(BOOT_CLIENTS), *args],
+        env=member_env(device), capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"boot: benchmark {args} rc {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    out = {"process_s": time.perf_counter() - t0}
+    for key, pat in (("total_s", r"Total:\t([\d.]+) s"),
+                     ("requests", r"Requests:\t(\d+)"),
+                     ("errors", r"\(errors (\d+)\)"),
+                     ("per_s", r"Throughput:\t([\d.]+) req/s"),
+                     ("p50_ms", r"p50:\t([\d.]+) ms"),
+                     ("p90_ms", r"p90:\t([\d.]+) ms"),
+                     ("p99_ms", r"p99:\t([\d.]+) ms"),
+                     ("p99.9_ms", r"p99\.9:\t([\d.]+) ms")):
+        m = re.search(pat, r.stdout)
+        if m is None:
+            raise AssertionError(f"boot: benchmark printed {r.stdout!r}")
+        out[key] = float(m.group(1))
+    total = int(args[args.index("--total") + 1])
+    if out["errors"] or out["requests"] != total:
+        raise AssertionError(f"boot: benchmark {args}: {out}")
+    return out
+
+
+def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
+             checked: int = BOOT_CHECKED, server_path=None) -> dict:
+    """etcd's own deployment on `dev`: three `python -m etcd_tpu_torch`
+    member processes at etcd's defaults (snapshot_count 100,000, the
+    node's ring at W = 32,768; heartbeat 100 ms, election 1,000 ms; the
+    "tpu" backend; on the card no --device, so each member takes the
+    GPU, with a CUDA context and a device lock of its own), loaded the
+    way etcd's documented benchmark loads them, from processes of their
+    own: the port's tools/benchmark.py puts `puts` 8-byte sequential
+    keys of 256-byte values through 100 connections to the leader, then
+    `ranges` ranges of a key of each consistency at every member,
+    followers included. Then `checked` puts of distinct keys and random
+    values from this process, each read back with its bytes on every
+    member, and the tool's keys too; hash_kv equal on every member; kill
+    -9 of the leader, a read at each survivor, its restart on its data
+    dir and a read there; a snapshot saved through the port's client,
+    restored by `python -m etcd_tpu_torch.etcdutl`, a solo member booted
+    on `dev` from it and a read there. Every member's orderly stop
+    writes its `kernel launches:` line: their sum is the path's launches
+    and node rounds (the killed leader's first process writes none, so
+    its launches are left out of the totals, not of the per-round
+    counts). Any failure raises."""
+    import shutil
+    import tempfile
+
+    from etcd_tpu_torch.tools.member_procs import (
+        MemberCluster, MemberProc, free_ports, member_env)
+
+    cuda = dev.type == "cuda"
+    device = worker_device(dev)
+    rng = np.random.RandomState(SEED + 11)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-boot-")
+    t0 = time.perf_counter()
+    stages, t_stage = {}, [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        stages[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    try:
+        c = MemberCluster(os.path.join(tmp, "cluster"), device=device)
+        solo = None
+        conns = []
+
+        def client(p):
+            cl = p.client(timeout=60.0)
+            conns.append(cl)
+            return cl
+
+        try:
+            boot_s = c.start()
+            lead = c.leader()
+            stage("boot")
+            put = bench_tool(
+                lead.endpoint, device, "--total", str(puts), "--val-size",
+                str(SERVER_VALUE_BYTES), "--key-size", str(SERVER_KEY_BYTES),
+                "put", "--sequential-keys")
+            stage("puts")
+            range_stats = {}
+            for p in c.procs:
+                for consistency, flag in (
+                        ("linearizable", ["--consistency-l"]),
+                        ("serializable", [])):
+                    st = bench_tool(p.endpoint, device, "--total", str(ranges),
+                                    "range", "000-0000", *flag)
+                    range_stats[f"{p.name} {consistency}"] = {
+                        "role": "leader" if p is lead else "follower",
+                        **{k: st[k] for k in ("per_s", "p50_ms", "p99_ms",
+                                              "process_s")}}
+            stage("ranges")
+            # Checked writes: distinct keys, random bytes, each ack recorded.
+            values = rng.bytes(checked * SERVER_VALUE_BYTES)
+            want = {b"check/%06d" % i:
+                    values[i * SERVER_VALUE_BYTES:(i + 1) * SERVER_VALUE_BYTES]
+                    for i in range(checked)}
+            keys = list(want)
+            _lat, _res, checked_s = client_load(
+                [client(lead) for _ in range(BOOT_CHECK_CLIENTS)], checked,
+                lambda cl, i: cl.put(keys[i], want[keys[i]]).header.revision,
+                "boot checked puts")
+            tool_keys = {b"%03d-0000" % i: b"v" * SERVER_VALUE_BYTES
+                         for i in range(BOOT_CLIENTS)}
+
+            def member_kv(p):
+                rr = client(p).get(b"\x00", b"\xff")  # linearizable
+                return {kv.key: kv.value for kv in rr.kvs}
+
+            for p in c.procs:
+                kv = member_kv(p)
+                if kv != {**tool_keys, **want}:
+                    raise AssertionError(
+                        f"boot: member {p.name} holds {len(kv)} keys, "
+                        f"{len(tool_keys) + len(want)} acked")
+            rev = client(lead).status()["revision"]
+            hashes = {p.name: client(p).hash_kv(rev)["hash"] for p in c.procs}
+            if len(set(hashes.values())) != 1:
+                raise AssertionError(f"boot: hash_kv at {rev}: {hashes}")
+            stage("checks")
+            # kill -9 of the leader; reads at the survivors; its restart.
+            lead.kill9()
+            t_kill = time.perf_counter()
+            last = keys[-1]
+            for p in c.procs:
+                if p is not lead:
+                    rr = client(p).get(last)
+                    if [kv.value for kv in rr.kvs] != [want[last]]:
+                        raise AssertionError(f"boot: survivor {p.name} read "
+                                             f"{rr.kvs}")
+            survivors_s = time.perf_counter() - t_kill
+            t_restart = time.perf_counter()
+            lead.start()
+            restart_s = lead.wait_ready()
+            new_lead = c.leader()
+            client(new_lead).put(b"after-restart", b"x")
+            rr = client(lead).get(b"after-restart")  # linearizable, at it
+            if [kv.value for kv in rr.kvs] != [b"x"]:
+                raise AssertionError(
+                    f"boot: the restarted member read {rr.kvs}")
+            catch_up_s = time.perf_counter() - t_restart
+            stage("kill9_restart")
+            # A snapshot through the client, restored by the port's etcdutl,
+            # booted as a solo member on the device.
+            snap = os.path.join(tmp, "boot.snap.db")
+            with open(snap, "wb") as f:
+                f.write(client(new_lead).snapshot())
+            pp, cp, mp = free_ports(3)
+            restored = os.path.join(tmp, "restored")
+            r = subprocess.run(
+                [sys.executable, "-m", "etcd_tpu_torch.etcdutl", "snapshot",
+                 "restore", snap, "--data-dir", restored, "--name", "solo",
+                 "--initial-cluster", f"solo=http://127.0.0.1:{pp}"],
+                env=member_env(device), capture_output=True, text=True,
+                timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(
+                    f"boot: etcdutl restore: {r.stderr[-2000:]}")
+            solo = MemberProc("solo", restored, pp, cp, mp,
+                              f"solo=http://127.0.0.1:{pp}", device=device,
+                              log_dir=tmp)
+            solo.start()
+            solo_s = solo.wait_ready()
+            rr = client(solo).get(last)
+            if [kv.value for kv in rr.kvs] != [want[last]]:
+                raise AssertionError(
+                    f"boot: the restored member read {rr.kvs}")
+            stage("snapshot_restore")
+        finally:
+            for cl in conns:
+                cl.close()
+            lines = c.close()
+            if solo is not None:
+                solo.stop()
+                lines += solo.launch_lines()
+            logs = {p.name: p.log_tail(1500) for p in c.procs}
+        if len(lines) != len(c.procs) + 1:
+            raise AssertionError(f"boot: {len(lines)} launch lines: {logs}")
+        path = sum_launch_lines(lines)
+        for ln in lines:
+            if ln["rounds"] == 0 or (cuda and 0 in ln["launches"].values()):
+                raise AssertionError(f"boot: member {ln['member']} "
+                                     f"launched {ln}")
+        per_round = {k: v / path["rounds"] for k, v in path["forms"].items()}
+        vs_server = None
+        if server_path is not None:
+            vs_server = {form: {"boot": per_round.get(form, 0.0),
+                                "server": server_path["forms"].get(form, 0)
+                                / server_path["rounds"]}
+                         for form in sorted(set(per_round)
+                                            | set(server_path["forms"]))}
+        log("boot", members=len(c.procs), clients=BOOT_CLIENTS,
+            config="etcd's defaults: snapshot_count 100,000 (W = 32,768), "
+            "heartbeat 100 ms, election 1,000 ms, raft backend tpu; the "
+            f"benchmark tool: {SERVER_KEY_BYTES}-byte sequential keys, "
+            f"{SERVER_VALUE_BYTES}-byte values",
+            boot_s=boot_s, puts=puts, puts_per_s=put["per_s"],
+            put_ms={k: put[k] for k in ("p50_ms", "p90_ms", "p99_ms",
+                                        "p99.9_ms")},
+            put_tool_s=put["process_s"], ranges_per_run=ranges,
+            ranges=range_stats, checked_puts=checked,
+            checked_puts_per_s=checked / checked_s,
+            keys_read_back_per_member=len(want) + len(tool_keys),
+            hash_kv_revision=rev, leader=lead.name,
+            survivors_read_s=survivors_s, restart_s=restart_s,
+            catch_up_s=catch_up_s, restored_boot_s=solo_s,
+            launch_lines=lines, launches=path["launches"],
+            launches_leave_out="the killed leader's first process (kill -9 "
+            "writes no launch line)",
+            node_rounds=path["rounds"],
+            launches_per_node_round={k: v / path["rounds"]
+                                     for k, v in path["launches"].items()},
+            form_launches_per_node_round=per_round,
+            forms_per_node_round_vs_server=vs_server,
+            stage_s=stages, wall_s=time.perf_counter() - t0,
+            card=smi("name,power.limit") if cuda else str(dev))
+        return path
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
@@ -4251,6 +4545,8 @@ def main() -> int:
     timed("rebalance", run_rebalance, dev)
     paths["server"] = timed("server", run_server, dev)
     timed("server_parity", run_server_parity, dev)
+    paths["boot"] = timed("boot", run_boot, dev, BOOT_PUTS, BOOT_RANGES,
+                          BOOT_CHECKED, paths["server"])
     log("phases", seconds=phase_s)
     print(json.dumps({"kernels": kernel_rows(variants, err, paths)}))
     print(smi("name,power.limit"))

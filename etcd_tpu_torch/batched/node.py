@@ -21,6 +21,29 @@ Differences from the host Node, by design:
   arena beside payloads); on apply, the host Changer computes the new
   config and stages voter/learner/joint masks for the device state.
 
+Member ids (differences from the reference's node, which takes dense
+ids 1..R only): the device addresses replicas by slot, and ``SlotMap``
+turns etcd's member ids (64-bit hashes of the peer URLs) into slots at
+this boundary alone. ``step`` and ``Ready.messages`` carry member ids,
+so do ``HardState.vote``, ``SoftState.lead``, every ``ConfState``,
+``status()`` and ``transfer_leadership``; the rawnode and the device stay
+slot-indexed. At dense ids 1..R the map is the identity. A message
+from a member this node has no slot for yet (the leader that a conf
+change it has not applied added) gives the sender a slot, as the
+reference's raft takes a message from any id; a restarted member's
+vote keeps its member id whatever its configuration names.
+
+Follower reads (a difference too): a follower's ``read_index`` sends
+``MsgReadIndex`` to its leader and surfaces the leader's
+``MsgReadIndexResp`` as a ``ReadState``; a leader joins a peer's
+``MsgReadIndex`` to its device ReadIndex batch and answers the sender
+when the batch is confirmed (ref: raft.go:1069 stepLeader, :1320-1333
+stepFollower, :1737 responseToReadIndexReq). A scalar-core peer's
+heartbeat context (its read request's bytes) rides the device as a
+4-byte token and goes back in the response as the bytes it came as;
+an append with more than ``max_ents_per_msg`` entries is staged as
+consecutive appends of at most that many.
+
 Threads: ``ready``/``advance``/``create_snapshot``/``compact`` run on one
 thread (the host's Ready loop); ``tick``, ``propose``, ``step``,
 ``read_index`` and the conf-change calls may come from any thread and
@@ -33,17 +56,21 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional
+from collections import OrderedDict
+from dataclasses import replace
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..raft.confchange import Changer, restore as cc_restore
+from ..raft.confchange import (
+    Changer, ConfChangeError, restore as cc_restore)
 from ..raft.errors import RaftError
 from ..raft.raft import SoftState, StateType
 from ..raft.rawnode import BasicStatus, Ready, Status
 from ..raft.read_only import ReadState
 from ..raft.tracker import ProgressTracker
 from ..raft.types import (
+    ConfChange,
     ConfChangeV2,
     ConfState,
     Entry,
@@ -57,11 +84,163 @@ from ..raft.types import (
 from .msgblock import block_messages
 from .rawnode import BatchedRawNode, RowRestore
 from .state import BatchedConfig
-from .step import T_SNAP
+from .step import T_APP, T_HB, T_HB_RESP, T_SNAP
 
 
 class ProposalDroppedError(RaftError):
     """ref: raft.ErrProposalDropped."""
+
+
+class SlotMap:
+    """Member id <-> device slot of one node.
+
+    The boot peers take slots 0.. in sorted id order (a joiner's own id
+    aside: it takes the first slot after them, the one its boot peers
+    give it). Any other id takes the first free slot when it needs one:
+    a member that a conf change adds (in log order), a member that only
+    the configuration names (in sorted id order), and a sender or a vote
+    that this node's configuration does not name yet (the wire carries
+    member ids, and the reference's raft steps a message from any id).
+    When no slot is free, the lowest slot whose member is outside
+    `keep` (the configuration, and the vote and leader the device names)
+    passes to the newcomer; a member keeps its slot otherwise, so at
+    dense ids 1..R the map is the identity. Members that apply the same
+    log hold the same map. On restart the map is rebuilt from what the
+    data dir holds: the boot peers, its snapshot's configuration and the
+    committed conf changes of the log after it, in log order. It is the
+    map the member had, but where members that the snapshot names beyond
+    the boot peers joined out of id order (a configuration does not keep
+    the order), or where a sender or vote took a slot ahead of its conf
+    change. Slots are local to a node, so nothing on the wire sees the
+    difference."""
+
+    def __init__(self, peers, capacity: int, members=(),
+                 self_id: int = 0, joiner: bool = False) -> None:
+        self.capacity = capacity
+        self.self_id = self_id
+        self._slot: Dict[int, int] = {}
+        self._id: Dict[int, int] = {}
+        boot = sorted(p for p in peers if not (joiner and p == self_id))
+        for slot, mid in enumerate(boot[:capacity]):
+            self._bind(mid, slot)
+        keep = (set(members) | {self_id}) - {0}
+        for mid in sorted(keep - set(self._slot)):
+            self.add(mid, keep)
+
+    def _bind(self, mid: int, slot: int) -> None:
+        self._slot[mid] = slot
+        self._id[slot] = mid
+
+    def add(self, mid: int, keep=()) -> int:
+        """The slot of `mid`, giving it the first free one if it has
+        none, else the lowest slot of a member outside `keep` (never this
+        member's own); ValueError when neither is left."""
+        if mid in self._slot:
+            return self._slot[mid]
+        slots = [s for s in range(self.capacity) if s not in self._id] or [
+            s for s in sorted(self._id)
+            if self._id[s] not in keep and self._id[s] != self.self_id]
+        if not slots:
+            raise ValueError(
+                f"member {mid:x}: no free replica slot (capacity "
+                f"R={self.capacity})")
+        self._slot.pop(self._id.get(slots[0]), None)
+        self._bind(mid, slots[0])
+        return slots[0]
+
+    def copy(self) -> "SlotMap":
+        out = SlotMap((), self.capacity)
+        out.self_id = self.self_id
+        out._slot, out._id = dict(self._slot), dict(self._id)
+        return out
+
+    def slot(self, mid: int) -> Optional[int]:
+        return self._slot.get(mid)
+
+    def as_dict(self) -> Dict[int, int]:
+        """{member id: slot}."""
+        return dict(self._slot)
+
+    def to_device(self, mid: int) -> Optional[int]:
+        """A member id as the device's id (slot + 1); 0 stays 0 (none),
+        None for an id without a slot."""
+        if not mid:
+            return 0
+        slot = self._slot.get(mid)
+        return None if slot is None else slot + 1
+
+    def from_device(self, did: int) -> int:
+        """The device's id (slot + 1) as a member id; 0 stays 0, and so
+        does a slot that no member holds."""
+        return self._id.get(did - 1, 0) if did else 0
+
+    def slots(self, ids) -> List[int]:
+        return [self._slot[m] for m in ids]
+
+
+def _members(cs: ConfState) -> set:
+    return set(cs.voters) | set(cs.voters_outgoing) | set(cs.learners)
+
+
+def _changed(tracker: ProgressTracker, cc, last_index: int):
+    """The configuration and progress that conf change `cc` makes of
+    `tracker`'s, joint semantics included (ref: raft.go:896-905
+    applyConfChange -> confchange.Changer)."""
+    cc2 = cc.as_v2()
+    changer = Changer(tracker=tracker, last_index=last_index)
+    if cc2.leave_joint():
+        return changer.leave_joint()
+    auto_leave, use_joint = cc2.enter_joint()
+    if use_joint:
+        return changer.enter_joint(auto_leave, cc2.changes)
+    return changer.simple(cc2.changes)
+
+
+def _conf_state(cfg, prs) -> ConfState:
+    tr = ProgressTracker(max_inflight=256)
+    tr.config, tr.progress = cfg, prs
+    return tr.conf_state()
+
+
+def _boot_slots(sm: SlotMap, cs: ConfState, restore: RowRestore) -> SlotMap:
+    """`sm`, built for configuration `cs`, after the committed conf
+    changes of `restore`'s log in log order (the map that applying them
+    gave this member before it stopped), then with a slot for the WAL's
+    vote, which stands whatever the configuration names (a candidate
+    that this member's log does not know yet): so no other candidate
+    gets a vote in its term. ValueError when the vote finds no slot."""
+    tr = ProgressTracker(max_inflight=256)
+    if _members(cs):
+        cc_restore(Changer(tr, 0), cs)
+    for e in restore.entries:
+        index, data = e[0], e[2]
+        etype = e[3] if len(e) > 3 else int(EntryType.EntryNormal)
+        if index > restore.commit:
+            break
+        if etype == EntryType.EntryConfChange and data:
+            cc = ConfChange.unmarshal(data)
+        elif etype == EntryType.EntryConfChangeV2:
+            cc = ConfChangeV2.unmarshal(data)
+        else:
+            continue
+        trial = sm.copy()
+        try:
+            cfg, prs = _changed(tr, cc, index)
+            members = _members(_conf_state(cfg, prs))
+            for c in cc.as_v2().changes:
+                if c.node_id in members:
+                    trial.add(c.node_id, members | {restore.vote})
+        except (ConfChangeError, ValueError):
+            continue  # its apply left the configuration as it was
+        sm, tr.config, tr.progress = trial, cfg, prs
+    if restore.vote:
+        sm.add(restore.vote, _members(tr.conf_state()))
+    return sm
+
+
+# Heartbeat context tokens kept per sender (a scalar-core leader's read
+# request bytes, staged on the device as 4-byte words).
+_CTX_TOKENS = 1024
 
 
 class BatchedNode:
@@ -87,15 +266,37 @@ class BatchedNode:
         caller names another (a caller without CUDA passes "cpu")."""
         self.id = node_id
         self.peers = sorted(peers)
-        assert self.peers == list(range(1, len(self.peers) + 1)), (
-            "batched backend uses dense member ids 1..R"
-        )
         # Replica capacity R is a compiled shape: provision headroom
         # beyond the boot peers so future member-adds have a slot
         # (spare slots are inert — the kernel's replication/electorate
         # sets are masked by voter|learner, so nothing is sent to them
         # until a conf change admits the member).
         r = max(capacity, len(self.peers))
+        if restore is not None and getattr(restore, "conf_state", None):
+            boot_cs = restore.conf_state
+        elif boot_conf_state is not None:
+            # Joiner boot: the caller dictates the starting config —
+            # typically voterless (empty), so this member cannot
+            # campaign or count its own vote until the admitting conf
+            # change applies from the replicated log (the device twin
+            # of Node.restart-with-empty-config semantics,
+            # ref: etcdserver/bootstrap.go:513-521 RestartNode).
+            boot_cs = boot_conf_state
+        else:
+            boot_cs = ConfState(voters=list(self.peers))
+        self.slot_map = SlotMap(
+            self.peers, r, members=_members(boot_cs), self_id=node_id,
+            joiner=node_id not in _members(boot_cs))
+        if restore is not None:
+            try:
+                self.slot_map = _boot_slots(self.slot_map, boot_cs, restore)
+            except ValueError:
+                raise RaftError(
+                    f"member {node_id:x}: no replica slot for the vote "
+                    f"{restore.vote:x} of term {restore.term} (capacity "
+                    f"R={r})") from None
+            restore = replace(
+                restore, vote=self.slot_map.to_device(restore.vote))
         self.cfg = BatchedConfig(
             num_groups=1,
             num_replicas=r,
@@ -111,7 +312,7 @@ class BatchedNode:
         self.rn = BatchedRawNode(
             self.cfg,
             groups=np.array([0], np.int32),
-            slots=np.array([node_id - 1], np.int32),
+            slots=np.array([self.slot_map.slot(node_id)], np.int32),
             restore={0: restore} if restore else None,
             device=device,
         )
@@ -132,40 +333,56 @@ class BatchedNode:
         # per-batch bindings (seq -> waiters). A waiter is only ever
         # served by a batch that opened at-or-after its request, so the
         # confirmed index covers its request time (linearizability).
-        self._read_unbound: List[bytes] = []
-        self._read_bound: Dict[int, List[bytes]] = {}
+        # Each waiter is (sender, rctx): sender 0 for this member's own
+        # read, else the follower whose MsgReadIndex it came in.
+        self._read_unbound: List[Tuple[int, bytes]] = []
+        self._read_bound: Dict[int, List[Tuple[int, bytes]]] = {}
+        # ReadStates from the leader's MsgReadIndexResp, for the next
+        # Ready.
+        self._read_remote: List[ReadState] = []
+        # Per sender, heartbeat context bytes -> token, oldest first, and
+        # token -> the context's bytes.
+        self._ctx_tokens: Dict[int, "OrderedDict[bytes, bytes]"] = {}
+        self._ctx_bytes: Dict[int, Dict[bytes, bytes]] = {}
+        self._ctx_next = 1
+        # Node rounds run (each ready() that stepped the device).
+        self.rounds = 0
         # Host config mirror driving confchange mask computation
         # (the reference's ProgressTracker config half; progress lives
         # on-device).
 
         self._conf_tracker = ProgressTracker(max_inflight=256)
-        if restore is not None and getattr(restore, "conf_state", None):
-            boot_cs = restore.conf_state
-        elif boot_conf_state is not None:
-            # Joiner boot: the caller dictates the starting config —
-            # typically voterless (empty), so this member cannot
-            # campaign or count its own vote until the admitting conf
-            # change applies from the replicated log (the device twin
-            # of Node.restart-with-empty-config semantics,
-            # ref: etcdserver/bootstrap.go:513-521 RestartNode).
-            boot_cs = boot_conf_state
-        else:
-            boot_cs = ConfState(voters=list(self.peers))
         if boot_cs.voters or boot_cs.learners or boot_cs.voters_outgoing:
             cc_restore(Changer(self._conf_tracker, 0), boot_cs)
         cs0 = self._conf_tracker.conf_state()
         # The device boots with ALL R slots as voters (init_state);
         # upload masks whenever the true config differs — including
         # when spare capacity slots exist beyond the boot peers.
-        if (sorted(cs0.voters) != list(range(1, r + 1)) or cs0.learners
-                or cs0.voters_outgoing):
-            self.rn.set_membership(
-                0,
-                voters=[v - 1 for v in cs0.voters],
-                voters_out=[v - 1 for v in cs0.voters_outgoing],
-                learners=[v - 1 for v in cs0.learners],
-                joint=bool(cs0.voters_outgoing),
-            )
+        if (sorted(self.slot_map.slots(cs0.voters)) != list(range(r))
+                or cs0.learners or cs0.voters_outgoing):
+            self._set_membership(cs0)
+
+    def _set_membership(self, cs: ConfState) -> None:
+        """Stage `cs`'s masks for the device, by slot."""
+        sm = self.slot_map
+        self.rn.set_membership(
+            0,
+            voters=sm.slots(cs.voters),
+            voters_out=sm.slots(cs.voters_outgoing),
+            learners=sm.slots(cs.learners),
+            joint=bool(cs.voters_outgoing),
+        )
+
+    def _lead(self) -> int:
+        """The leader's member id as this node knows it, 0 if none."""
+        return self.slot_map.from_device(self.rn.lead(0))
+
+    def _named(self) -> set:
+        """The members the device names now (this term's vote and
+        leader): no newcomer takes their slots, so the vote and the
+        leader keep their ids when they leave the configuration."""
+        sm = self.slot_map
+        return {sm.from_device(int(self.rn.m_vote[0])), self._lead()} - {0}
 
     def _current_conf_state(self) -> ConfState:
         """Membership as last applied (snapshot metadata must reflect
@@ -212,7 +429,7 @@ class BatchedNode:
                 self.rn.propose(0, data, etype=int(etype))
                 self._work.set()
                 return
-            lead = self.rn.lead(0)
+            lead = self._lead()
             if lead != 0:
                 with self._lock:
                     self._fwd.append(Message(
@@ -250,33 +467,28 @@ class BatchedNode:
         (ref: raft.go:896-905 applyConfChange → confchange.Changer)."""
 
         cc2 = cc.as_v2()
-        bad = [c.node_id for c in cc2.changes
-               if not 1 <= c.node_id <= self.cfg.num_replicas]
-        if bad:
-            raise ValueError(
-                f"conf-change targets {bad} outside provisioned replica "
-                f"capacity R={self.cfg.num_replicas}")
+        named = self._named()
         with self._lock:
             tr = self._conf_tracker
-            changer = Changer(tracker=tr, last_index=int(self.rn.m_last[0]))
-            if cc2.leave_joint():
-                cfg, prs = changer.leave_joint()
-            else:
-                auto_leave, use_joint = cc2.enter_joint()
-                if use_joint:
-                    cfg, prs = changer.enter_joint(auto_leave, cc2.changes)
-                else:
-                    cfg, prs = changer.simple(cc2.changes)
+            cfg, prs = _changed(tr, cc2, int(self.rn.m_last[0]))
+            # The slots first: a target that cannot get one leaves the
+            # configuration as it was.
+            cs = _conf_state(cfg, prs)
+            members = _members(cs)
+            sm = self.slot_map.copy()
+            try:
+                for c in cc2.changes:
+                    if c.node_id in members:
+                        sm.add(c.node_id, members | named)
+            except ValueError:
+                raise ValueError(
+                    f"conf-change targets {[c.node_id for c in cc2.changes]}"
+                    f" outside provisioned replica capacity "
+                    f"R={self.cfg.num_replicas}") from None
+            self.slot_map = sm
             tr.config, tr.progress = cfg, prs
-            cs = tr.conf_state()
             auto_leave = bool(cs.voters_outgoing) and tr.config.auto_leave
-        self.rn.set_membership(
-            0,
-            voters=[v - 1 for v in cs.voters],
-            voters_out=[v - 1 for v in cs.voters_outgoing],
-            learners=[v - 1 for v in cs.learners],
-            joint=bool(cs.voters_outgoing),
-        )
+        self._set_membership(cs)
         if self.rn.is_leader(0):
             # A leader contacts changed membership immediately
             # (ref: raft.go switchToConfig → maybeSendAppend), not at
@@ -294,11 +506,24 @@ class BatchedNode:
         return cs
 
     def step(self, m: Message) -> None:
+        if m.type == MessageType.MsgReadIndex:
+            self._step_read_index(m)
+            return
+        if m.type == MessageType.MsgReadIndexResp:
+            # The leader confirmed this member's read (ref: raft.go:1328
+            # stepFollower MsgReadIndexResp).
+            if len(m.entries) == 1:
+                with self._lock:
+                    self._read_remote.append(ReadState(
+                        index=m.index, request_ctx=m.entries[0].data))
+                self._work.set()
+            return
         if m.type == MessageType.MsgTransferLeader:
             # Forwarded from a follower: from_ carries the transferee
             # (raft.go stepLeader MsgTransferLeader convention).
-            if self.rn.is_leader(0):
-                self.rn.transfer_leader(0, m.from_ - 1)
+            slot = self.slot_map.slot(m.from_)
+            if self.rn.is_leader(0) and slot is not None:
+                self.rn.transfer_leader(0, slot)
                 self._work.set()
             return
         if m.type == MessageType.MsgProp:
@@ -318,7 +543,7 @@ class BatchedNode:
                     self.rn.propose(0, e.data, etype=int(e.type))
                 self._work.set()
                 return
-            lead = self.rn.lead(0)
+            lead = self._lead()
             if lead == 0 or lead == m.from_:
                 raise ProposalDroppedError("no leader; proposal dropped")
             with self._lock:
@@ -343,23 +568,106 @@ class BatchedNode:
             if m.snapshot.metadata.index > m.index:
                 m.index = m.snapshot.metadata.index
                 m.log_term = m.snapshot.metadata.term
-        self.rn.step(0, m)
+        if int(m.type) == T_HB and m.context and len(m.context) != 4:
+            m = replace(m, context=self._ctx_token(m.from_, m.context))
+        frm, to = self._sender(m), self.slot_map.to_device(m.to)
+        if frm is None or to is None:
+            return  # not for this member, or no slot left for the sender
+        m = replace(m, from_=frm, to=to)
+        e = self.cfg.max_ents_per_msg
+        if int(m.type) == T_APP and len(m.entries) > e:
+            # One append of more than E entries (a scalar-core leader's)
+            # is the same as its consecutive runs of E, each after the
+            # last: the device reads E entries of a message.
+            prev, prev_term = m.index, m.log_term
+            for k in range(0, len(m.entries), e):
+                run = m.entries[k:k + e]
+                self.rn.step(0, replace(m, index=prev, log_term=prev_term,
+                                        entries=run))
+                prev, prev_term = run[-1].index, run[-1].term
+        else:
+            self.rn.step(0, m)
         self._work.set()
+
+    def _sender(self, m: Message) -> Optional[int]:
+        """m's sender as the device's id. A sender without a slot, at
+        this node's term or above, gets a free one (the reference's raft
+        steps a message from any id: the leader that a conf change this
+        member has not applied yet added must reach it); None for a
+        stale one, or when no slot is free."""
+        did = self.slot_map.to_device(m.from_)
+        if did is not None or m.term < int(self.rn.m_term[0]):
+            return did
+        named = self._named()
+        with self._lock:
+            sm = self.slot_map.copy()
+            try:
+                slot = sm.add(m.from_, _members(
+                    self._conf_tracker.conf_state()) | named)
+            except ValueError:
+                return None
+            self.slot_map = sm
+        return slot + 1
+
+    def _ctx_token(self, sender: int, ctx: bytes) -> bytes:
+        """A 4-byte stand-in for a heartbeat context of another length
+        from member `sender`, remembered so that the response carries
+        the bytes back."""
+        with self._lock:
+            toks = self._ctx_tokens.setdefault(sender, OrderedDict())
+            ctxs = self._ctx_bytes.setdefault(sender, {})
+            tok = toks.get(ctx)
+            if tok is not None:
+                return tok
+            tok = self._ctx_next.to_bytes(4, "little")
+            self._ctx_next = self._ctx_next % 0x7FFFFFFF + 1
+            toks[ctx], ctxs[tok] = tok, ctx
+            while len(toks) > _CTX_TOKENS:
+                del ctxs[toks.popitem(last=False)[1]]
+            return tok
+
+    def _step_read_index(self, m: Message) -> None:
+        """A follower's MsgReadIndex: join the device's next ReadIndex
+        batch where this member leads, bound to (sender, ctx); forward
+        it toward the leader otherwise; drop it without one (ref:
+        raft.go:1069 stepLeader, :1320 stepFollower)."""
+        if len(m.entries) != 1:
+            return
+        if self.rn.is_leader(0):
+            sender = 0 if m.from_ == self.id else m.from_
+            with self._lock:
+                self._read_unbound.append((sender, m.entries[0].data))
+            self.rn.read_index(0)
+            self._work.set()
+            return
+        lead = self._lead()
+        if lead != 0 and lead != m.from_:
+            with self._lock:
+                self._fwd.append(replace(m, to=lead))
+            self._work.set()
 
     def read_index(self, rctx: bytes) -> None:
         """Open (or join) a ReadIndex batch on the device; the
         confirmed index surfaces as Ready.read_states carrying `rctx`
         (ref: node.go:556-560 ReadIndex; batching matches the server's
-        linearizableReadLoop one-round-many-waiters shape).
-
-        Raises on a non-leader so callers retry against the leader
-        instead of hanging (divergence from the reference, which
-        forwards MsgReadIndex — the server read loop's retry/timeout
-        machinery handles both shapes)."""
+        linearizableReadLoop one-round-many-waiters shape). A follower
+        asks its leader with MsgReadIndex and surfaces the leader's
+        answer; with no leader it drops the request, as the reference's
+        follower does (ref: raft.go:1320-1327), and the caller's retry
+        asks again once a leader is known (the server's read loop
+        re-requests every READ_INDEX_RETRY_TIME until its timeout)."""
         if not self.rn.is_leader(0):
-            raise ProposalDroppedError("read_index: not leader")
+            lead = self._lead()
+            if lead == 0:
+                return
+            with self._lock:
+                self._fwd.append(Message(
+                    type=MessageType.MsgReadIndex, to=lead, from_=self.id,
+                    entries=[Entry(data=rctx)]))
+            self._work.set()
+            return
         with self._lock:
-            self._read_unbound.append(rctx)
+            self._read_unbound.append((0, rctx))
         self.rn.read_index(0)
         self._work.set()
 
@@ -368,9 +676,12 @@ class BatchedNode:
         forwards to its known leader over the wire, the reference's
         stepFollower MsgTransferLeader path (raft.go:1457-1464)."""
         if self.rn.is_leader(0):
-            self.rn.transfer_leader(0, transferee - 1)
+            slot = self.slot_map.slot(transferee)
+            if slot is None:
+                return  # not a member; drop like a stale request
+            self.rn.transfer_leader(0, slot)
         else:
-            lead_now = self.rn.lead(0)
+            lead_now = self._lead()
             if lead_now == 0:
                 return  # no leader; drop like the reference logs+drops
             with self._lock:
@@ -388,20 +699,22 @@ class BatchedNode:
 
     def has_ready(self) -> bool:
         with self._lock:
-            fwd = bool(self._fwd)
+            fwd = bool(self._fwd or self._read_remote)
         return fwd or self.rn.has_work()
 
     def ready(self, timeout: Optional[float] = None) -> Optional[Ready]:
         """Run one device round over the staged inputs and translate the
         BatchedReady to the host Ready shape. Returns None when there is
         no work within `timeout`."""
-        if not self.rn.has_work() and not self._fwd:
+        if not self.rn.has_work() and not self._fwd and not self._read_remote:
             if not self._work.wait(timeout):
                 return None
         self._work.clear()
         if self._stopped:
             return None
         rd = self.rn.advance_round()
+        self.rounds += 1
+        sm = self.slot_map
 
         entries = [
             Entry(index=i, term=t, data=d, type=EntryType(et))
@@ -437,13 +750,12 @@ class BatchedNode:
                         tr = ProgressTracker(max_inflight=256)
                         cc_restore(Changer(tr, idx), cs)
                         self._conf_tracker = tr
-                    self.rn.set_membership(
-                        0,
-                        voters=[v - 1 for v in cs.voters],
-                        voters_out=[v - 1 for v in cs.voters_outgoing],
-                        learners=[v - 1 for v in cs.learners],
-                        joint=bool(cs.voters_outgoing),
-                    )
+                        sm = self.slot_map.copy()
+                        keep = _members(cs) | self._named()
+                        for mid in sorted(_members(cs)):
+                            sm.add(mid, keep)
+                        self.slot_map = sm
+                    self._set_membership(cs)
             else:
                 snapshot = Snapshot(
                     metadata=SnapshotMetadata(
@@ -466,11 +778,17 @@ class BatchedNode:
                     # possible transiently); retry next heartbeat.
                     continue
                 m.snapshot = app
+            m.to, m.from_ = sm.from_device(m.to), sm.from_device(m.from_)
+            if not m.to:
+                continue  # to a slot that no member holds any more
+            if int(m.type) == T_HB_RESP and m.context:
+                with self._lock:
+                    ctx = self._ctx_bytes.get(m.to, {}).get(m.context)
+                if ctx is not None:
+                    m.context = ctx
             messages.append(m)
-        with self._lock:
-            messages.extend(self._fwd)
-            self._fwd.clear()
 
+        term = int(self.rn._round[0][0])
         read_states = []
         if rd.read_opened or rd.read_states:
             with self._lock:
@@ -481,20 +799,33 @@ class BatchedNode:
                         self._read_unbound)
                     self._read_unbound = []
                 for _row, seq, ridx in rd.read_states:
-                    for rctx in self._read_bound.pop(seq, []):
-                        read_states.append(
-                            ReadState(index=ridx, request_ctx=rctx))
+                    for sender, rctx in self._read_bound.pop(seq, []):
+                        if sender:
+                            # A follower's read: answer it (ref:
+                            # raft.go:1737 responseToReadIndexReq).
+                            messages.append(Message(
+                                type=MessageType.MsgReadIndexResp,
+                                to=sender, from_=self.id, term=term,
+                                index=ridx, entries=[Entry(data=rctx)]))
+                        else:
+                            read_states.append(
+                                ReadState(index=ridx, request_ctx=rctx))
+        with self._lock:
+            messages.extend(self._fwd)
+            self._fwd.clear()
+            read_states.extend(self._read_remote)
+            self._read_remote.clear()
 
         hs = HardState(
-            term=int(self.rn._round[0][0]),
-            vote=int(self.rn._round[1][0]),
+            term=term,
+            vote=sm.from_device(int(self.rn._round[1][0])),
             commit=int(self.rn._round[2][0]),
         )
         # SoftState rides the Ready only when it changed — the
         # reference's newReady contract (raft/node.go:564-584), which
         # is how EtcdServer learns leadership transitions.
         soft = SoftState(
-            lead=self.rn.lead(0),
+            lead=self._lead(),
             raft_state=StateType(int(self.rn.m_role[0])),
         )
         soft_out = None
@@ -563,11 +894,11 @@ class BatchedNode:
                 id=self.id,
                 hard_state=HardState(
                     term=int(self.rn.m_term[0]),
-                    vote=int(self.rn.m_vote[0]),
+                    vote=self.slot_map.from_device(int(self.rn.m_vote[0])),
                     commit=int(self.rn.m_commit[0]),
                 ),
                 soft_state=SoftState(
-                    lead=self.rn.lead(0),
+                    lead=self._lead(),
                     raft_state=StateType(role),
                 ),
                 applied=int(self.rn.applied[0]),

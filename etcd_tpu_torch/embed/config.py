@@ -5,7 +5,8 @@ One dataclass, populated from flags (etcdmain/config.go) or a YAML file,
 with the same knobs the reference exposes where they exist in this
 build. URLs use the reference's "scheme://host:port" comma-list format.
 
-Ports ``etcd_tpu/embed/config.py``.
+Ports ``etcd_tpu/embed/config.py``, with two more fields: ``raft_backend``
+(default ``"tpu"``) and ``device`` (default ``None``, the GPU).
 """
 
 from __future__ import annotations
@@ -119,6 +120,13 @@ class Config:
     log_level: str = "info"
     auth_token: str = "simple"  # "simple" | "hmac:<key>" | "jwt,sign-key=<k>[,sign-method=HS256][,ttl=5m]"
     strict_reconfig_check: bool = True
+    # Raft behind the server: "tpu" steps consensus in the batched round
+    # (the port's default, the kernels' path), "host" runs the scalar
+    # core; and, for "tpu", where the round's rows live: None is the
+    # GPU, and without CUDA the boot fails before the data dir is
+    # touched.
+    raft_backend: str = "tpu"
+    device: Optional[str] = None
 
     # -- derived ---------------------------------------------------------------
 

@@ -30,7 +30,9 @@ so that a caller's configuration carries over), whose ``BatchedNode``
 rows live on ``ServerConfig.device``, the GPU unless the caller names
 another; without CUDA and with no device named, the server raises before
 it touches ``data_dir``. ``"host"`` runs the scalar core, which touches
-no device.
+no device. A fresh ``"tpu"`` member writes the bootstrap conf changes
+that the scalar core's ``Node.start`` writes (``_bootstrap_log``), so
+that its data dir boots the scalar core too.
 """
 
 from __future__ import annotations
@@ -168,7 +170,7 @@ class ServerConfig:
     client_tls_info: Any = None
     # Raft implementation behind the Node contract: "host" = the
     # reference-shaped Python core, "tpu" = the batched device engine
-    # (requires dense member ids 1..R; ref: SURVEY §7.6
+    # (member ids reach it through its id <-> slot map; ref: SURVEY §7.6
     # --experimental-raft-backend plumbing at bootstrapRaft).
     raft_backend: str = "tpu"
     # tpu backend only: provisioned replica slots (compiled shape).
@@ -450,6 +452,8 @@ class EtcdServer:
                 conf_state=(snap.metadata.conf_state
                             if snap.metadata.index > 0 else None),
             )
+        if restore is None and not old_wal and not joiner_boot:
+            restore = self._bootstrap_log()
         # Device ring must cover the un-snapshotted tail (snapshots
         # every snapshot_count entries plus catch-up margin).
         window = 1 << max(6, (2 * self.cfg.snapshot_count + 64).bit_length())
@@ -481,6 +485,28 @@ class EtcdServer:
             # it into MemoryStorage); the ring floor is already at the
             # snapshot index, so this only attaches the app state.
             self.node.compact(snap.metadata.index, snap)
+
+    def _bootstrap_log(self):
+        """A fresh member's log as Node.start writes it: one
+        ConfChangeAddNode a boot peer at term 1, committed (ref:
+        raft/bootstrap.go:30-80), saved to the WAL and given to the node
+        as committed; they apply as on the host path (the registry is
+        seeded already, the node's configuration holds them already).
+        The scalar core rebuilds its configuration from these entries, so
+        the data dir boots either backend."""
+        from ..batched.rawnode import RowRestore
+        from ..raft.types import HardState
+
+        ents = [Entry(type=EntryType.EntryConfChange, term=1, index=i + 1,
+                      data=ConfChange(
+                          type=ConfChangeType.ConfChangeAddNode, node_id=p,
+                          context=Member(id=p, name=f"m{p}").marshal(),
+                      ).marshal())
+                for i, p in enumerate(self.cfg.peers)]
+        self.wal.save(HardState(term=1, commit=len(ents)), ents, True)
+        return RowRestore(
+            term=1, vote=0, commit=len(ents),
+            entries=[(e.index, e.term, e.data, int(e.type)) for e in ents])
 
     # -- loops -----------------------------------------------------------------
 

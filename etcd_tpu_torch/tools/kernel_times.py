@@ -330,13 +330,17 @@ def node_term_cases(w: int, k: int, gen: torch.Generator, dev) -> list:
     return cases
 
 
-def node_quorum_cases(gen: torch.Generator, dev, tallies: int = 1) -> list:
-    """Seeded N = 1 quorum inputs at R = 3: all voters, a joint config,
-    a single voter, an empty config and an empty joint config."""
-    r = NODE_R
-    masks = [((1, 1, 1), (0, 0, 0), False), ((1, 1, 0), (1, 0, 1), True),
-             ((0, 1, 0), (0, 0, 0), False), ((0, 0, 0), (0, 0, 0), False),
-             ((0, 0, 0), (0, 0, 0), True)]
+def node_quorum_cases(gen: torch.Generator, dev, tallies: int = 1,
+                      r: int = NODE_R) -> list:
+    """Seeded N = 1 quorum inputs at R = 3 (all voters, a joint config,
+    a single voter, an empty config and an empty joint config) or R = 1
+    (a solo member: its voter, a joint config of it, an empty config and
+    an empty joint config)."""
+    masks = {3: [((1, 1, 1), (0, 0, 0), False), ((1, 1, 0), (1, 0, 1), True),
+                 ((0, 1, 0), (0, 0, 0), False), ((0, 0, 0), (0, 0, 0), False),
+                 ((0, 0, 0), (0, 0, 0), True)],
+             1: [((1,), (0,), False), ((1,), (1,), True), ((0,), (0,), False),
+                 ((0,), (0,), True)]}[r]
     cases = []
     for voter, voter_out, joint in masks:
         def mask(v):
@@ -355,29 +359,32 @@ def node_path_forms(dev, hk=hk_plain) -> list:
     like main_path_forms, with `cases` (every seeded case, each to be
     held equal to the plain form) and `call`/`plain` on the timed case
     (B1: the joint config; B2: the long log's last case), whose bytes
-    and operations the bound counts."""
+    and operations the bound counts. B1 at R = 3 (a three-member
+    cluster) and R = 1 (a solo member, as a restored snapshot boots)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q = "quorum_commit_vote"
-    r = NODE_R
-    support_ops = r + r * (2 * r + 2)  # the O(R^2) support loop of a half
-    io_bytes = 2 * r + 1 + 4 * r + 4   # masks, one tally row, its result
     forms = []
-    for key, tallies, ops, run, plain in (
-            (f"{q} commit R={r} B=1", 1, 2 * support_ops,
-             lambda c: hk.quorum_commit(*c[:4]),
-             lambda c: hk_plain.quorum_commit_ref(*c[:4])),
-            (f"{q} vote R={r} B=1", 1, 2 * 4 * r,
-             lambda c: hk.quorum_vote(c[4], *c[1:4]),
-             lambda c: hk_plain.quorum_vote_ref(c[4], *c[1:4])),
-            (f"{q} vote R={r} B={r}", r, r * 2 * 4 * r,
-             lambda c: hk.quorum_vote(c[4], *c[1:4], r),
-             lambda c: hk_plain.quorum_vote_ref(c[4], *c[1:4], r))):
-        cases = [(lambda c=c, f=run: f(c), lambda c=c, f=plain: f(c))
-                 for c in node_quorum_cases(gen, dev, tallies)]
-        forms.append({"key": key, "n": 1, "cases": cases,
-                      "call": cases[1][0], "plain": cases[1][1],
-                      "bytes": io_bytes + (tallies - 1) * (4 * r + 4),
-                      "ops": ops})
+    for r in (NODE_R, 1):
+        support_ops = r + r * (2 * r + 2)  # the O(R^2) support loop of a half
+        io_bytes = 2 * r + 1 + 4 * r + 4   # masks, one tally row, its result
+        for key, tallies, ops, run, plain in (
+                (f"{q} commit R={r} B=1", 1, 2 * support_ops,
+                 lambda c: hk.quorum_commit(*c[:4]),
+                 lambda c: hk_plain.quorum_commit_ref(*c[:4])),
+                (f"{q} vote R={r} B=1", 1, 2 * 4 * r,
+                 lambda c: hk.quorum_vote(c[4], *c[1:4]),
+                 lambda c: hk_plain.quorum_vote_ref(c[4], *c[1:4])),
+                (f"{q} vote R={r} B={r}", r, r * 2 * 4 * r,
+                 lambda c, r=r: hk.quorum_vote(c[4], *c[1:4], r),
+                 lambda c, r=r: hk_plain.quorum_vote_ref(c[4], *c[1:4], r))):
+            if any(f["key"] == key for f in forms):
+                continue  # at R = 1 the B = R form is the B = 1 one
+            cases = [(lambda c=c, f=run: f(c), lambda c=c, f=plain: f(c))
+                     for c in node_quorum_cases(gen, dev, tallies, r)]
+            forms.append({"key": key, "n": 1, "cases": cases,
+                          "call": cases[1][0], "plain": cases[1][1],
+                          "bytes": io_bytes + (tallies - 1) * (4 * r + 4),
+                          "ops": ops})
     for w in NODE_WINDOWS:
         for k in (1, NODE_R, NODE_E, NODE_R * NODE_E):
             args = node_term_cases(w, k, gen, dev)

@@ -986,6 +986,8 @@ def test_server_restart_from_the_wal_on_the_card(dev, tmp_path):
 
 
 def test_server_phase_at_a_small_size(dev):
-    """chip_smoke's server phase at 200 puts through 20 connections."""
-    out = chip_smoke.run_server(dev, puts=200, clients=20, ranges=100)
+    """chip_smoke's server phase at 200 puts through 20 connections,
+    snapshots every 50 entries from the 300th."""
+    out = chip_smoke.run_server(dev, puts=200, clients=20, ranges=100,
+                                snapshots=(300, 250))
     assert all(v > 0 for v in out["launches"].values())

@@ -146,7 +146,9 @@ def test_port_imports_no_jax():
     server, the rebalancer and the tools that drive them, the scalar
     raft core, the shadow cluster and its lockstep tool, the etcd server
     with its MVCC store, lessor, auth, v2 store, RPC service and client
-    among them),
+    among them, and what boots and fronts it: embed, etcdmain, the peer
+    transport, the HTTP listeners, etcdutl, the benchmark tool and the
+    member-process harness),
     building and loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
@@ -192,7 +194,15 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.client.concurrency",
           "etcd_tpu_torch.embed.config", "etcd_tpu_torch.pkg.rpctypes",
           "etcd_tpu_torch.functional.cluster",
-          "etcd_tpu_torch.tools.server_script"):
+          "etcd_tpu_torch.tools.server_script",
+          "etcd_tpu_torch.embed.etcd", "etcd_tpu_torch.etcdmain",
+          "etcd_tpu_torch.__main__", "etcd_tpu_torch.transport.tcp",
+          "etcd_tpu_torch.transport.metrics", "etcd_tpu_torch.etcdhttp",
+          "etcd_tpu_torch.gatewayjson", "etcd_tpu_torch.v2http",
+          "etcd_tpu_torch.discovery", "etcd_tpu_torch.client.srv",
+          "etcd_tpu_torch.etcdutl", "etcd_tpu_torch.version",
+          "etcd_tpu_torch.pkg.report", "etcd_tpu_torch.tools.benchmark",
+          "etcd_tpu_torch.tools.member_procs"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))

@@ -29,8 +29,10 @@ def _counting(monkeypatch):
 
 def test_server_phase_on_the_cpu(monkeypatch):
     _counting(monkeypatch)
+    # Snapshots every 20 entries from the 80th, each keeping 60 below
+    # the applied index: the follower restarts from one, as at full size.
     out = chip_smoke.run_server(torch.device("cpu"), puts=40, clients=8,
-                                ranges=24, snap_puts=40)
+                                ranges=24, snap_puts=40, snapshots=(80, 60))
     assert out["rounds"] > 0
     assert all(v > 0 for v in out["launches"].values()), out["launches"]
     # The spies are gone: the wrappers are the counting ones again.
