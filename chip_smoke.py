@@ -154,9 +154,11 @@ def check_kernels(dev) -> "tuple[list, dict]":
     round gives them at N = 1,024 rows (hosting's default W = 64,
     E = 8: the quorum at [N, 3], the general ring lookup at K in
     {1, 3, 8, 24}), then every form a BatchedNode round
-    gives them at N = 1 (B1 at R=3 with joint and empty configs; the
-    general ring lookup at K in {1, 3, 8, 24} and W in {256, 32768},
-    with queries at the floor, past last and across the ring's wrap),
+    gives them at N = 1 (B1 at R = 3, at booted members' R = 4 and a
+    booted solo member's R = 2, each spare slot included, with joint and
+    empty configs; the general ring lookup at K in {1, 2, 3, 4, 8, 16,
+    24, 32} and W in {128, 32768}, with queries at the floor, past last
+    and across the ring's wrap),
     every seeded case held equal and the first timed. Returns the timed
     forms and each kernel's largest |kernel - plain|, and prints the
     forms."""
@@ -801,7 +803,7 @@ def run_shapes(dev, groups: int = MAIN_GROUPS) -> dict:
 # -- phase: shadow (every shape against the port's scalar Raft) ------------------
 
 
-def run_shadow(dev, groups: int = 64) -> None:
+def run_shadow(dev, groups: int = 32) -> None:
     """The engine on `dev` against the shadow cluster (the port's scalar
     raft core, replaying the engine's deliver order) for each shape, at
     test_differential's config and `groups` groups, on
@@ -4245,6 +4247,7 @@ BOOT_RANGES = 500           # the tool's ranges, a consistency a member
 BOOT_CHECKED = 500          # puts of distinct keys and random values, each
                             # read back on every member
 BOOT_CHECK_CLIENTS = 20
+C17_SECONDS = 5.0           # reads a run: none, a follower, the leader slowed
 
 
 def bench_tool(endpoint: str, device, *args) -> dict:
@@ -4283,8 +4286,20 @@ def bench_tool(endpoint: str, device, *args) -> dict:
     return out
 
 
+def launch_delta(before: dict, after: dict) -> dict:
+    """A member's node rounds and launches between two launch lines of
+    one of its processes (`launches_now`)."""
+    if after["gen"] != before["gen"]:
+        raise AssertionError(f"boot: member {after['member']} restarted")
+    return {"rounds": after["rounds"] - before["rounds"],
+            **{field: {k: v - before[field].get(k, 0)
+                       for k, v in after[field].items()}
+               for field in ("launches", "forms")}}
+
+
 def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
-             checked: int = BOOT_CHECKED, server_path=None) -> dict:
+             checked: int = BOOT_CHECKED, server_path=None,
+             mirror_keys: int = 200, c17_seconds: float = C17_SECONDS) -> dict:
     """etcd's own deployment on `dev`: three `python -m etcd_tpu_torch`
     member processes at etcd's defaults (snapshot_count 100,000, the
     node's ring at W = 32,768; heartbeat 100 ms, election 1,000 ms; the
@@ -4296,18 +4311,28 @@ def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
     `ranges` ranges of a key of each consistency at every member,
     followers included. Then `checked` puts of distinct keys and random
     values from this process, each read back with its bytes on every
-    member, and the tool's keys too; hash_kv equal on every member; kill
-    -9 of the leader, a read at each survivor, its restart on its data
-    dir and a read there; a snapshot saved through the port's client,
-    restored by `python -m etcd_tpu_torch.etcdutl`, a solo member booted
-    on `dev` from it and a read there. Every member's orderly stop
-    writes its `kernel launches:` line: their sum is the path's launches
-    and node rounds (the killed leader's first process writes none, so
-    its launches are left out of the totals, not of the per-round
-    counts). Any failure raises."""
+    member, and the tool's keys too; hash_kv equal on every member; a
+    snapshot saved through the port's client, restored by `python -m
+    etcd_tpu_torch.etcdutl`, a solo member booted on `dev` from it and a
+    read there; the `ctl` stage (tools/ctl_stage.py: the port's etcdctl
+    and grpc-proxy as processes of their own against the members,
+    make-mirror into the solo member; its node rounds and launches from
+    the members' launch lines before and after it); linearizable reads
+    at every member with no member, a follower and the leader slowed by
+    SIGSTOP/SIGCONT bursts (ROADMAP C17); the port's gateway in front of
+    the members, the leader first, and kill -9 of the leader through it
+    (the stage's last step; its seconds a step on a line of their own),
+    a read at each survivor, its restart on its data dir and a read
+    there.
+    Every member's orderly stop writes its `kernel launches:` line:
+    their sum is the path's launches and node rounds (the killed
+    leader's process writes none, so its launches are left out of the
+    totals, not of the per-round counts). Any failure raises."""
     import shutil
     import tempfile
 
+    from etcd_tpu_torch.tools.ctl_stage import (
+        run_ctl_stage, slowed_reads, step_gateway)
     from etcd_tpu_torch.tools.member_procs import (
         MemberCluster, MemberProc, free_ports, member_env)
 
@@ -4382,33 +4407,12 @@ def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
             if len(set(hashes.values())) != 1:
                 raise AssertionError(f"boot: hash_kv at {rev}: {hashes}")
             stage("checks")
-            # kill -9 of the leader; reads at the survivors; its restart.
-            lead.kill9()
-            t_kill = time.perf_counter()
             last = keys[-1]
-            for p in c.procs:
-                if p is not lead:
-                    rr = client(p).get(last)
-                    if [kv.value for kv in rr.kvs] != [want[last]]:
-                        raise AssertionError(f"boot: survivor {p.name} read "
-                                             f"{rr.kvs}")
-            survivors_s = time.perf_counter() - t_kill
-            t_restart = time.perf_counter()
-            lead.start()
-            restart_s = lead.wait_ready()
-            new_lead = c.leader()
-            client(new_lead).put(b"after-restart", b"x")
-            rr = client(lead).get(b"after-restart")  # linearizable, at it
-            if [kv.value for kv in rr.kvs] != [b"x"]:
-                raise AssertionError(
-                    f"boot: the restarted member read {rr.kvs}")
-            catch_up_s = time.perf_counter() - t_restart
-            stage("kill9_restart")
             # A snapshot through the client, restored by the port's etcdutl,
             # booted as a solo member on the device.
             snap = os.path.join(tmp, "boot.snap.db")
             with open(snap, "wb") as f:
-                f.write(client(new_lead).snapshot())
+                f.write(client(lead).snapshot())
             pp, cp, mp = free_ports(3)
             restored = os.path.join(tmp, "restored")
             r = subprocess.run(
@@ -4430,6 +4434,58 @@ def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
                 raise AssertionError(
                     f"boot: the restored member read {rr.kvs}")
             stage("snapshot_restore")
+            # etcd's outer client surfaces: the port's etcdctl and
+            # grpc-proxy, each a process of its own; make-mirror into the
+            # solo member. The members' launch lines (SIGHUP) before and
+            # after count the stage's node rounds and launches.
+            before = {p.name: p.launches_now() for p in c.procs}
+            ctl_out = run_ctl_stage(c.procs, solo, tmp, mirror_keys)
+            after = {p.name: p.launches_now() for p in c.procs}
+            ctl_path = sum_launch_lines([
+                launch_delta(before[p.name], after[p.name])
+                for p in c.procs])
+            stage("ctl")
+            # ROADMAP C17: linearizable reads at every member, with no
+            # member slowed, with a follower and with the leader stopped
+            # 0.3 s of every 0.6 s.
+            lead = c.leader()
+            slow = next(p for p in c.procs if p is not lead)
+            c17 = {"none": slowed_reads(c.procs, None, c17_seconds),
+                   f"follower {slow.name}": slowed_reads(
+                       c.procs, slow, c17_seconds),
+                   f"leader {lead.name}": slowed_reads(
+                       c.procs, lead, c17_seconds)}
+            c17_roles = {p.name: "leader" if p is lead else "follower"
+                         for p in c.procs}
+            stage("c17_reads")
+            # kill -9 of the leader, the gateway's first endpoint: etcdctl
+            # through the gateway reaches it, then another member; reads
+            # at the survivors; its restart.
+            lead = c.leader()
+            t_gw = time.perf_counter()
+            step_gateway(c.procs, lead, ctl_out, stop=lead.kill9)
+            ctl_out["step_s"]["gateway"] = time.perf_counter() - t_gw
+            t_kill = time.perf_counter()
+            for p in c.procs:
+                if p is not lead:
+                    rr = client(p).get(last)
+                    if [kv.value for kv in rr.kvs] != [want[last]]:
+                        raise AssertionError(f"boot: survivor {p.name} read "
+                                             f"{rr.kvs}")
+            survivors_s = time.perf_counter() - t_kill
+            t_restart = time.perf_counter()
+            lead.start()
+            restart_s = lead.wait_ready()
+            new_lead = c.leader()
+            client(new_lead).put(b"after-restart", b"x")
+            rr = client(lead).get(b"after-restart")  # linearizable, at it
+            if [kv.value for kv in rr.kvs] != [b"x"]:
+                raise AssertionError(
+                    f"boot: the restarted member read {rr.kvs}")
+            catch_up_s = time.perf_counter() - t_restart
+            stage("kill9_restart")
+            print("ctl stage seconds: " + json.dumps(ctl_out["step_s"]),
+                  flush=True)
         finally:
             for cl in conns:
                 cl.close()
@@ -4438,6 +4494,8 @@ def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
                 solo.stop()
                 lines += solo.launch_lines()
             logs = {p.name: p.log_tail(1500) for p in c.procs}
+        # Each member's last process and the solo member (the killed
+        # leader's first process writes none).
         if len(lines) != len(c.procs) + 1:
             raise AssertionError(f"boot: {len(lines)} launch lines: {logs}")
         path = sum_launch_lines(lines)
@@ -4471,6 +4529,15 @@ def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
             launch_lines=lines, launches=path["launches"],
             launches_leave_out="the killed leader's first process (kill -9 "
             "writes no launch line)",
+            ctl=ctl_out, ctl_node_rounds=ctl_path["rounds"],
+            ctl_launches=ctl_path["launches"],
+            ctl_launches_per_node_round={
+                k: v / max(1, ctl_path["rounds"])
+                for k, v in ctl_path["launches"].items()},
+            ctl_form_launches_per_node_round={
+                k: v / max(1, ctl_path["rounds"])
+                for k, v in ctl_path["forms"].items()},
+            c17_reads=c17, c17_roles=c17_roles,
             node_rounds=path["rounds"],
             launches_per_node_round={k: v / path["rounds"]
                                      for k, v in path["launches"].items()},

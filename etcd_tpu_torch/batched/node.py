@@ -42,7 +42,12 @@ stepFollower, :1737 responseToReadIndexReq). A scalar-core peer's
 heartbeat context (its read request's bytes) rides the device as a
 4-byte token and goes back in the response as the bytes it came as;
 an append with more than ``max_ents_per_msg`` entries is staged as
-consecutive appends of at most that many.
+consecutive appends of at most that many, and an append that continues
+the one its sender has queued joins it up to that many entries (a
+scalar-core leader sends one append a proposal, and a round takes one
+message a sender: without the merge its backlog drained one proposal a
+round; ROADMAP C18). A batched leader sends at most one append a round
+to a follower, so the merge does not fire between batched members.
 
 Threads: ``ready``/``advance``/``create_snapshot``/``compact`` run on one
 thread (the host's Ready loop); ``tick``, ``propose``, ``step``,
@@ -583,10 +588,10 @@ class BatchedNode:
             for k in range(0, len(m.entries), e):
                 run = m.entries[k:k + e]
                 self.rn.step(0, replace(m, index=prev, log_term=prev_term,
-                                        entries=run))
+                                        entries=run), merge_appends=True)
                 prev, prev_term = run[-1].index, run[-1].term
         else:
-            self.rn.step(0, m)
+            self.rn.step(0, m, merge_appends=True)
         self._work.set()
 
     def _sender(self, m: Message) -> Optional[int]:

@@ -60,7 +60,7 @@ import os
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -124,6 +124,22 @@ _LANE = {
     T_APP_RESP: KIND_APP_RESP,
     T_HB_RESP: KIND_HB_RESP,
 }
+
+
+def _merge_append(prev: Message, m: Message, e: int) -> Optional[Message]:
+    """`prev` and `m` as one MsgApp, when `m` continues `prev` (same
+    sender and term, `m`'s previous entry is `prev`'s last) and the two
+    hold at most `e` entries; None otherwise. The device reads the same
+    log either way: `m` appended after `prev` in the round after it."""
+    if (int(prev.type) != T_APP or prev.term != m.term or not prev.entries
+            or not m.entries or len(prev.entries) + len(m.entries) > e):
+        return None
+    last = prev.entries[-1]
+    if (last.index, last.term) != (m.index, m.log_term):
+        return None
+    return replace(prev, entries=list(prev.entries) + list(m.entries),
+                   commit=max(prev.commit, m.commit))
+
 
 # The ROADMAP items that port what this module refuses.
 _NOT_PORTED = {
@@ -703,11 +719,18 @@ class BatchedRawNode:
         with self._lock:
             return len(self._props[row])
 
-    def step(self, row: int, m: Message) -> None:
+    def step(self, row: int, m: Message, merge_appends: bool = False) -> None:
         """Stage an inbound wire message for `row`. MsgApp entry
         payloads go to the arena; MsgSnap app-state restore must already
         have happened (hosting layer) — here we stage the device-side
-        ring restore."""
+        ring restore.
+
+        With `merge_appends` (a difference from the reference, which
+        always queues), a MsgApp that continues the append queued last
+        for its (row, sender, lane), at the same term, joins it while the
+        two hold at most ``max_ents_per_msg`` entries: a scalar-core
+        leader sends one append a proposal, and a round takes one message
+        a sender (_merge_append)."""
         t = int(m.type)
         lane = _LANE.get(t)
         if lane is None:
@@ -738,7 +761,13 @@ class BatchedRawNode:
                 index=m.snapshot.metadata.index,
             )
         with self._lock:
-            self._pending.setdefault((row, from_slot, lane), deque()).append(m)
+            q = self._pending.setdefault((row, from_slot, lane), deque())
+            if merge_appends and t == T_APP and q:
+                joined = _merge_append(q[-1], m, self.cfg.max_ents_per_msg)
+                if joined is not None:
+                    q[-1] = joined
+                    return
+            q.append(m)
 
     def step_block(self, blk: MsgBlock,
                    supersede_heartbeats: bool = False) -> None:

@@ -8,6 +8,9 @@ replay → raft), then client RPC + metrics/health HTTP serving.
 Ports ``etcd_tpu/embed/etcd.py``. Where the reference builds a server that
 runs the scalar core, this one passes ``Config.raft_backend`` and the
 device on, and resolves the device first, before the data dir is read.
+It gives the node one replica slot more than the initial cluster has
+peers, so that a leader that a member's configuration does not name yet
+always finds a slot there (ROADMAP C20).
 """
 
 from __future__ import annotations
@@ -16,7 +19,6 @@ import socket
 import threading
 from typing import Dict, List, Optional, Tuple
 
-from ..batched.state import resolve_device
 from ..etcdhttp import EtcdHTTP
 from ..server import EtcdServer, ServerConfig
 from ..server.corrupt import transport_peer_fetcher
@@ -87,6 +89,8 @@ def start_etcd(cfg: Config) -> Etcd:
     device = None
     if cfg.raft_backend == "tpu":
         # Before any file is touched: no GPU and no device named raises.
+        from ..batched.state import resolve_device
+
         device = resolve_device(cfg.device)
     if os.environ.get("ETCD_VERIFY") == "all" and os.path.isdir(cfg.data_dir):
         # Data-dir invariants checked before boot when enabled
@@ -175,6 +179,10 @@ def start_etcd(cfg: Config) -> Etcd:
         client_tls_info=cfg.client_tls_info(),
         raft_backend=cfg.raft_backend,
         device=device,
+        # One spare device slot: a leader that this member's
+        # configuration does not name yet (an add it has not applied)
+        # always finds one (ROADMAP C20).
+        replica_capacity=len(ids) + 1,
     )
     try:
         server = EtcdServer(scfg)

@@ -16,9 +16,8 @@ Ports ``etcd_tpu/etcdmain/__init__.py``, with these differences:
   ``embed.Config``;
 * an orderly stop writes one ``kernel launches:`` line
   (``launches_line``): the member's node rounds and its launches of each
-  kernel and form since boot;
-* ``gateway start`` and ``grpc-proxy start`` exit 2: ``proxy/`` is not
-  ported yet (ROADMAP A19b);
+  kernel and form since boot; SIGHUP writes one more, and the member runs
+  on;
 * the names it prints are the port's.
 """
 
@@ -32,7 +31,7 @@ from typing import List, Optional
 
 from .. import version as ver
 from ..embed import Config, config_from_file, start_etcd
-from ..embed.config import ConfigError
+from ..embed.config import ConfigError, parse_urls
 
 
 def _add_member_flags(p: argparse.ArgumentParser) -> None:
@@ -134,6 +133,8 @@ def _run_etcd(args: argparse.Namespace) -> int:
             print(f"LESSOR dump failed: {exc!r}", file=sys.stderr, flush=True)
 
     signal.signal(signal.SIGUSR2, _dump_lessor)
+    signal.signal(signal.SIGHUP,
+                  lambda *_: print(launches_line(e, "signal"), flush=True))
     ch, cp = e.client_addr
     mh, mp = e.metrics_addr
     print(
@@ -157,32 +158,69 @@ def _run_etcd(args: argparse.Namespace) -> int:
     return 0
 
 
-def launches_line(e) -> str:
+def launches_line(e, at: str = "stop") -> str:
     """The member's node rounds and its launches of each kernel and form
     since boot, as one line (hosting_proc's LAUNCHES_PREFIX); 0 rounds
     on the host backend, and 0 launches on the CPU, where the plain
-    forms run."""
+    forms run. `at` says when it was written: "stop" at an orderly stop,
+    "signal" on SIGHUP (the counts so far, the member running on)."""
     import json
 
     from ..batched.hopper_kernels import FORM_LAUNCHES, LAUNCHES
     from ..batched.hosting_proc import LAUNCHES_PREFIX
 
     return LAUNCHES_PREFIX + json.dumps({
-        "member": f"{e.server.id:x}",
+        "member": f"{e.server.id:x}", "at": at,
         "rounds": int(getattr(e.server.node, "rounds", 0)),
         "launches": dict(LAUNCHES), "forms": dict(FORM_LAUNCHES)})
 
 
 def _run_gateway(args: argparse.Namespace) -> int:
-    print("error: gateway start needs proxy/, which is not ported yet "
-          "(ROADMAP A19b)", file=sys.stderr)
-    return 2
+    from ..proxy.tcpproxy import TCPProxy
+
+    eps = parse_urls(
+        ",".join(
+            x if "://" in x else f"http://{x}"
+            for x in args.endpoints.split(",")
+        )
+    )
+    host, port = args.listen_addr.rsplit(":", 1)
+    proxy = TCPProxy(eps, bind=(host, int(port)),
+                     monitor_interval=args.retry_delay)
+    print(
+        f"tcpproxy: ready to proxy client requests to {eps}", flush=True
+    )
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    try:
+        while not stop.is_set():
+            stop.wait(0.2)
+    finally:
+        proxy.stop()
+    return 0
 
 
 def _run_grpc_proxy(args: argparse.Namespace) -> int:
-    print("error: grpc-proxy start needs proxy/, which is not ported yet "
-          "(ROADMAP A19b)", file=sys.stderr)
-    return 2
+    from ..proxy.grpcproxy import start_grpc_proxy
+
+    eps = []
+    for x in args.endpoints.split(","):
+        if "://" not in x:
+            x = f"http://{x}"
+        eps.extend(parse_urls(x))
+    host, port = args.listen_addr.rsplit(":", 1)
+    proxy = start_grpc_proxy(eps, bind=(host, int(port)))
+    print(f"grpcproxy: listening on {proxy.addr}", flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    try:
+        while not stop.is_set():
+            stop.wait(0.2)
+    finally:
+        proxy.stop()
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -53,7 +53,6 @@ from ..pkg import failpoint
 from ..pkg.idutil import Generator
 from ..pkg.schedule import FIFOScheduler
 from ..pkg.wait import Wait, WaitTime
-from ..batched.state import resolve_device
 from ..raft.node import Node, Peer
 from ..raft.raft import Config, NONE, StateType
 from ..raft.rawnode import Ready
@@ -193,7 +192,10 @@ class EtcdServer:
     def __init__(self, cfg: ServerConfig) -> None:
         if cfg.raft_backend == "tpu":
             # Before any file is touched: no GPU and no device named
-            # raises.
+            # raises. Imported here, as the reference imports its node
+            # (_boot_raft_tpu), so that the client side loads no torch.
+            from ..batched.state import resolve_device
+
             self.device = resolve_device(cfg.device)
         self.cfg = cfg
         self.id = cfg.member_id

@@ -295,9 +295,15 @@ def worker_path_forms(dev, k=k_plain, hk=hk_plain):
 
 # The node path (batched/node.py): one row (N = 1) per BatchedNode round,
 # R = 3, E = 8, so the ring lookup meets K = 1, R, E and R*E = 24, at
-# the node tests' window and raftexample's default one.
+# raftexample's and a server's default window, and at the window of a
+# server at snapshot_count 16 (chip_smoke's MsgSnap catch-up, W = 128).
+# Booted members (embed)
+# run a spare slot: R = 4 for three peers, R = 2 for a solo member (as a
+# restored snapshot boots), so the lookup also meets K = 2, 4, 16 and 32.
 NODE_R, NODE_E = 3, 8
-NODE_WINDOWS = (256, 32768)
+BOOT_R, SOLO_R = NODE_R + 1, 2
+NODE_RS = (NODE_R, BOOT_R, SOLO_R)
+NODE_WINDOWS = (128, 32768)
 
 
 def node_term_cases(w: int, k: int, gen: torch.Generator, dev) -> list:
@@ -333,14 +339,22 @@ def node_term_cases(w: int, k: int, gen: torch.Generator, dev) -> list:
 def node_quorum_cases(gen: torch.Generator, dev, tallies: int = 1,
                       r: int = NODE_R) -> list:
     """Seeded N = 1 quorum inputs at R = 3 (all voters, a joint config,
-    a single voter, an empty config and an empty joint config) or R = 1
-    (a solo member: its voter, a joint config of it, an empty config and
-    an empty joint config)."""
+    a single voter, an empty config and an empty joint config), R = 4
+    (a booted member: three voters and the spare slot, a member replaced
+    through the spare, a joint config over it, a single voter and an
+    empty config) or R = 2 (a booted solo member: its voter and the
+    spare, a second voter in the spare, a joint config over both, an
+    empty config)."""
     masks = {3: [((1, 1, 1), (0, 0, 0), False), ((1, 1, 0), (1, 0, 1), True),
                  ((0, 1, 0), (0, 0, 0), False), ((0, 0, 0), (0, 0, 0), False),
                  ((0, 0, 0), (0, 0, 0), True)],
-             1: [((1,), (0,), False), ((1,), (1,), True), ((0,), (0,), False),
-                 ((0,), (0,), True)]}[r]
+             4: [((1, 1, 1, 0), (0, 0, 0, 0), False),
+                 ((1, 0, 1, 1), (0, 0, 0, 0), False),
+                 ((1, 0, 1, 1), (1, 1, 1, 0), True),
+                 ((0, 1, 0, 0), (0, 0, 0, 0), False),
+                 ((0, 0, 0, 0), (0, 0, 0, 0), False)],
+             2: [((1, 0), (0, 0), False), ((1, 1), (0, 0), False),
+                 ((1, 1), (1, 0), True), ((0, 0), (0, 0), False)]}[r]
     cases = []
     for voter, voter_out, joint in masks:
         def mask(v):
@@ -360,11 +374,12 @@ def node_path_forms(dev, hk=hk_plain) -> list:
     held equal to the plain form) and `call`/`plain` on the timed case
     (B1: the joint config; B2: the long log's last case), whose bytes
     and operations the bound counts. B1 at R = 3 (a three-member
-    cluster) and R = 1 (a solo member, as a restored snapshot boots)."""
+    cluster), R = 4 (booted members' three peers and spare slot) and
+    R = 2 (a booted solo member and its spare slot)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q = "quorum_commit_vote"
     forms = []
-    for r in (NODE_R, 1):
+    for r in NODE_RS:
         support_ops = r + r * (2 * r + 2)  # the O(R^2) support loop of a half
         io_bytes = 2 * r + 1 + 4 * r + 4   # masks, one tally row, its result
         for key, tallies, ops, run, plain in (
@@ -377,8 +392,6 @@ def node_path_forms(dev, hk=hk_plain) -> list:
                 (f"{q} vote R={r} B={r}", r, r * 2 * 4 * r,
                  lambda c, r=r: hk.quorum_vote(c[4], *c[1:4], r),
                  lambda c, r=r: hk_plain.quorum_vote_ref(c[4], *c[1:4], r))):
-            if any(f["key"] == key for f in forms):
-                continue  # at R = 1 the B = R form is the B = 1 one
             cases = [(lambda c=c, f=run: f(c), lambda c=c, f=plain: f(c))
                      for c in node_quorum_cases(gen, dev, tallies, r)]
             forms.append({"key": key, "n": 1, "cases": cases,
@@ -386,7 +399,8 @@ def node_path_forms(dev, hk=hk_plain) -> list:
                           "bytes": io_bytes + (tallies - 1) * (4 * r + 4),
                           "ops": ops})
     for w in NODE_WINDOWS:
-        for k in (1, NODE_R, NODE_E, NODE_R * NODE_E):
+        for k in sorted({1, NODE_E} | set(NODE_RS)
+                        | {r * NODE_E for r in NODE_RS}):
             args = node_term_cases(w, k, gen, dev)
             cases = [(lambda a=a: hk.term_at_batch(*a),
                       lambda a=a: hk_plain.term_at_batch_ref(*a))

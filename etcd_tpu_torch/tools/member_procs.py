@@ -11,7 +11,8 @@ that a restart keeps the crashed process's log. A port member gets
 and none on the card, where it takes its default, the GPU. ``kill9``
 leaves the data dir as the crash left it; ``start`` boots the member on
 it again; ``stop`` is an orderly stop (SIGTERM), after which a port
-member's log holds its ``kernel launches:`` line (``launch_lines``).
+member's log holds its ``kernel launches:`` line (``launch_lines``);
+``launches_now`` asks a running port member for the line so far (SIGHUP).
 
 ``MemberCluster`` is three such members (``n`` of them) on free local
 ports, at etcd's default heartbeat and election timeouts (100 ms,
@@ -19,6 +20,11 @@ ports, at etcd's default heartbeat and election timeouts (100 ms,
 "etcd_tpu"}`` boots the reference's member first), ``flags`` adds
 member flags (``--raft-backend host``). ``leader()`` asks each member's
 Status over its client URL.
+
+``etcdctl`` runs one command of the port's etcdctl (``python -m
+etcd_tpu_torch.etcdctl``) as a process of its own, as etcd's e2e tests
+run theirs, and ``etcdctl_popen`` starts one that blocks (watch, lock,
+elect).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import subprocess
 import sys
 import time
 import urllib.request
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..batched.hosting_proc import LAUNCHES_PREFIX
 from ..client import Client
@@ -38,6 +44,7 @@ from ..embed.config import member_id_from_urls
 from .proc_cluster import free_ports
 
 PORT_MEMBER = "etcd_tpu_torch"
+PORT_CTL = "etcd_tpu_torch.etcdctl"
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 TOKEN = "etcd-cluster"  # etcd's default --initial-cluster-token
@@ -54,6 +61,27 @@ def member_env(device: Optional[str]) -> Dict[str, str]:
     if device == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")
     return env
+
+
+def etcdctl(endpoints: str, *args: str, stdin: Optional[str] = None,
+            timeout: float = 60.0,
+            module: str = PORT_CTL) -> Tuple[int, str, str]:
+    """One etcdctl command in a process of its own: its exit code,
+    stdout and stderr."""
+    r = subprocess.run(
+        [sys.executable, "-m", module, "--endpoints", endpoints, *args],
+        env=member_env(None), capture_output=True, text=True, input=stdin,
+        timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+def etcdctl_popen(endpoints: str, *args: str,
+                  module: str = PORT_CTL) -> subprocess.Popen:
+    """An etcdctl command that blocks, its output on pipes (text)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", module, "--endpoints", endpoints, *args],
+        env=member_env(None), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
 
 
 class MemberProc:
@@ -166,9 +194,10 @@ class MemberProc:
         host, port = self.endpoint.rsplit(":", 1)
         return Client([(host, int(port))], request_timeout=timeout)
 
-    def launch_lines(self) -> List[dict]:
-        """The `kernel launches:` line of each generation's log (one per
-        orderly stop)."""
+    def launch_lines(self, at: str = "stop") -> List[dict]:
+        """The `kernel launches:` lines of each generation's log written
+        at `at`: "stop" (one per orderly stop) or "signal" (one per
+        SIGHUP, `launches_now`)."""
         out = []
         for gen in range(self.gen + 1):
             path = self.log_path(gen)
@@ -177,9 +206,25 @@ class MemberProc:
             with open(path, "rb") as f:
                 for line in f.read().decode(errors="replace").splitlines():
                     if line.startswith(LAUNCHES_PREFIX):
-                        out.append({"log": os.path.basename(path),
-                                    **json.loads(line[len(LAUNCHES_PREFIX):])})
+                        ln = json.loads(line[len(LAUNCHES_PREFIX):])
+                        if ln.get("at", "stop") == at:
+                            out.append({"log": os.path.basename(path),
+                                        "gen": gen, **ln})
         return out
+
+    def launches_now(self, timeout: float = 30.0) -> dict:
+        """The running member's launch line as of now (its node rounds
+        and launches since this generation booted): SIGHUP, then the new
+        line from its log."""
+        seen = len(self.launch_lines("signal"))
+        self.proc.send_signal(signal.SIGHUP)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            lines = self.launch_lines("signal")
+            if len(lines) > seen:
+                return lines[-1]
+            time.sleep(0.05)
+        raise AssertionError(f"member {self.name} wrote no launch line")
 
 
 class MemberCluster:

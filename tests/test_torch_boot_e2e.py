@@ -10,7 +10,8 @@ by the port's client and etcdutl:
 - a txn and endpoint status;
 - kill -9 of the leader, reads from the survivors, its restart;
 - a snapshot saved through the port's client, restored by the port's
-  etcdutl, and a solo port member booted from it.
+  etcdutl, and a solo port member booted from it;
+- ``gateway start`` and ``grpc-proxy start`` in front of the members.
 
 The members keep etcd's member ids (``member_id_from_urls``) in
 ``member list``, in the data dir's ``member-<id>`` and in the WAL's
@@ -26,6 +27,7 @@ import os
 import signal
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -223,8 +225,36 @@ def test_no_cuda_no_device_leaves_no_data_dir(tmp_path):
 
 
 def test_proxies_are_refused_until_ported():
-    for cmd in (["gateway", "start"], ["grpc-proxy", "start"]):
-        r = subprocess.run([sys.executable, "-m", "etcd_tpu_torch", *cmd],
-                           env=member_env(None), capture_output=True,
-                           text=True, timeout=120)
-        assert r.returncode == 2 and "ROADMAP A19b" in r.stderr, r.stderr
+    """They were refused until ``proxy/`` was ported; now ``gateway
+    start`` and ``grpc-proxy start`` run the port's proxies: each, in
+    front of a listening socket, prints its ready line and stops with
+    exit code 0 on SIGTERM (tests/test_torch_proxy.py drives them in
+    front of members)."""
+    import socket
+
+    with socket.socket() as backend:
+        backend.bind(("127.0.0.1", 0))
+        backend.listen(8)
+        ep = "127.0.0.1:%d" % backend.getsockname()[1]
+        for cmd, ready in ((["gateway", "start"], "tcpproxy: ready"),
+                           (["grpc-proxy", "start"], "grpcproxy: listening")):
+            (port,) = free_ports(1)
+            p = subprocess.Popen(
+                [sys.executable, "-m", "etcd_tpu_torch", *cmd, "--endpoints",
+                 ep, "--listen-addr", f"127.0.0.1:{port}"],
+                env=member_env(None), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            try:
+                line = p.stdout.readline()
+                assert line.startswith(ready), (line, p.stderr.read())
+                # etcdmain sets its SIGTERM handler just after the ready
+                # line (as the reference does).
+                time.sleep(1.0)
+                p.send_signal(signal.SIGTERM)
+                assert p.wait(timeout=60) == 0
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                p.stdout.close()
+                p.stderr.close()

@@ -148,7 +148,9 @@ def test_port_imports_no_jax():
     with its MVCC store, lessor, auth, v2 store, RPC service and client
     among them, and what boots and fronts it: embed, etcdmain, the peer
     transport, the HTTP listeners, etcdutl, the benchmark tool and the
-    member-process harness),
+    member-process harness; and the outer client surfaces: etcdctl, the
+    grpc, http and tcp proxies, the client recipes, ``pb/`` and the
+    ``pkg`` leaves traceutil, notify, mock and proxy),
     building and loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
@@ -202,7 +204,18 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.discovery", "etcd_tpu_torch.client.srv",
           "etcd_tpu_torch.etcdutl", "etcd_tpu_torch.version",
           "etcd_tpu_torch.pkg.report", "etcd_tpu_torch.tools.benchmark",
-          "etcd_tpu_torch.tools.member_procs"):
+          "etcd_tpu_torch.tools.member_procs",
+          "etcd_tpu_torch.etcdctl", "etcd_tpu_torch.etcdctl.__main__",
+          "etcd_tpu_torch.proxy.grpcproxy", "etcd_tpu_torch.proxy.tcpproxy",
+          "etcd_tpu_torch.proxy.httpproxy", "etcd_tpu_torch.client.snapshot",
+          "etcd_tpu_torch.client.v2", "etcd_tpu_torch.client.namespace",
+          "etcd_tpu_torch.client.naming", "etcd_tpu_torch.client.ordering",
+          "etcd_tpu_torch.client.mirror", "etcd_tpu_torch.client.leasing",
+          "etcd_tpu_torch.pb", "etcd_tpu_torch.pb.raft_pb2",
+          "etcd_tpu_torch.pb.kv_pb2", "etcd_tpu_torch.pb.convert",
+          "etcd_tpu_torch.pb.kv_convert", "etcd_tpu_torch.pkg.traceutil",
+          "etcd_tpu_torch.pkg.notify", "etcd_tpu_torch.pkg.mock",
+          "etcd_tpu_torch.pkg.proxy"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))
@@ -213,3 +226,26 @@ print(",".join(bad))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"port loaded: {out.stdout.strip()}"
+
+
+# The client side: what etcdctl, the proxies and etcdmain's process
+# imports before it serves anything.
+CLIENT_SIDE = ("etcd_tpu_torch.client", "etcd_tpu_torch.etcdctl",
+               "etcd_tpu_torch.proxy.grpcproxy",
+               "etcd_tpu_torch.proxy.tcpproxy", "etcd_tpu_torch.etcdmain")
+
+
+@pytest.mark.parametrize("module", CLIENT_SIDE)
+def test_client_side_imports_no_torch(module):
+    """Importing the port's client, etcdctl, proxies or etcdmain in a
+    fresh interpreter loads no torch (nor JAX): a command's process
+    starts without the device stack, which the member imports only where
+    it resolves its device (server.py, embed/etcd.py)."""
+    code = (f"import sys, {module}\n"
+            "print(','.join(sorted(m for m in sys.modules if m.split('.')[0]"
+            " in ('torch', 'jax', 'etcd_tpu'))))")
+    root = __file__.rsplit("/tests/", 1)[0]
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"{module} loaded: {out.stdout.strip()}"

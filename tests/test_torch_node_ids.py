@@ -20,6 +20,9 @@
   ReadState. Without a leader the request is dropped.
 - Three embedded members (``embed.start_etcd``, ``device="cpu"``) hold
   the same map, and a restarted one rebuilds it from its data dir.
+- A backlog of single-entry appends from one sender (a scalar-core
+  leader's) merges at the follower up to E entries a message (ROADMAP
+  C18).
 """
 
 import numpy as np
@@ -361,3 +364,29 @@ def test_a_lagging_follower_takes_the_new_leader():
         and d in nodes[lag]._current_conf_state().voters)
     assert leader() == d and nodes[lag].status().basic.soft_state.lead == d
     assert nodes[lag].slot_map.slot(d) == 3
+
+
+def test_a_backlog_of_single_entry_appends_merges():
+    """ROADMAP C18: a scalar-core leader sends one MsgApp a proposal, and
+    a round takes one message a sender. A follower that finds 64
+    contiguous single-entry appends of one sender queued merges them up
+    to E = 8 entries a message, so it holds the whole log after 8 rounds
+    (one a message without the merge, 64)."""
+    f = tnode.BatchedNode(2, list(DENSE), election_tick=10, device="cpu")
+    e = f.cfg.max_ents_per_msg
+    n = 8 * e
+    for i in range(1, n + 1):
+        f.step(ttypes.Message(
+            type=ttypes.MessageType.MsgApp, to=2, from_=1, term=2,
+            index=i - 1, log_term=2 if i > 1 else 0, commit=i,
+            entries=[ttypes.Entry(index=i, term=2, data=b"p%d" % i)]))
+    got, rounds = [], 0
+    while len(got) < n and rounds < 2 * n:
+        rd = f.ready(timeout=0)
+        rounds += 1
+        if rd is not None:
+            got += [(x.index, x.data) for x in rd.entries]
+            f.advance()
+    assert got == [(i, b"p%d" % i) for i in range(1, n + 1)]
+    assert rounds == n // e
+    assert f.status().basic.hard_state.commit == n

@@ -156,12 +156,14 @@ def test_no_device_without_cuda_raises_before_the_data_dir(tmp_path,
 def test_host_backend_resolves_no_device(tmp_path, monkeypatch):
     """raft_backend="host" runs the scalar core: it never asks for a
     device, so it boots and serves with device resolution refused."""
-    from etcd_tpu_torch.server import server as tserver
+    from etcd_tpu_torch.batched import state as tstate
 
     def refuse(_device=None):
         raise AssertionError("the host backend resolved a device")
 
-    monkeypatch.setattr(tserver, "resolve_device", refuse)
+    # The server imports the helper where it resolves the device, so the
+    # helper is refused at its home.
+    monkeypatch.setattr(tstate, "resolve_device", refuse)
     c = TCluster(str(tmp_path), n=3, raft_backend="host")
     try:
         lead = c.wait_leader(60)

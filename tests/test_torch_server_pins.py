@@ -6,7 +6,9 @@ the v3 RPC service and wire, the client and its recipes, ``embed``,
 ``functional``'s cluster, stressers and checkers) and for booting and
 fronting it (the peer transport, etcdmain and ``__main__``, the HTTP,
 gateway and v2 listeners, discovery, ``etcdutl``, the version, the
-benchmark tool and its report) is compared with ``etcd_tpu``'s by its
+benchmark tool and its report), and for the outer client surfaces
+(etcdctl, the grpc, http and tcp proxies, the client recipes, ``pb/``
+and the ``pkg`` leaves traceutil, notify, mock and proxy) is compared with ``etcd_tpu``'s by its
 syntax tree, definition by definition (docstrings dropped). Nothing may
 be missing or extra but the listed definitions. The listed differences
 are normalized away first, and each must still be there:
@@ -17,7 +19,8 @@ are normalized away first, and each must still be there:
 - ``pkg/schedule.py``: the logger is named after the port's package;
 - ``server/server.py``: ``raft_backend`` defaults to ``"tpu"``,
   ``ServerConfig`` has a ``device`` field, ``EtcdServer.__init__``
-  resolves it before any file is touched, and ``_boot_raft_tpu`` passes
+  resolves it before any file is touched (importing the device helper
+  there, so that the client side loads no torch), and ``_boot_raft_tpu`` passes
   it to ``BatchedNode``; a fresh ``"tpu"`` member writes the bootstrap
   conf changes the scalar core writes (``EtcdServer._bootstrap_log``, a
   definition the reference does not have), so either backend boots its
@@ -25,13 +28,17 @@ are normalized away first, and each must still be there:
 - ``embed/config.py``: ``Config`` has two more fields, ``raft_backend``
   (default ``"tpu"``) and ``device`` (default ``None``, the GPU);
 - ``embed/etcd.py``: ``start_etcd`` resolves the device (for ``"tpu"``)
-  before it reads the data dir, and passes ``raft_backend`` and the
-  device to ``ServerConfig``;
+  before it reads the data dir (importing the helper there), and passes ``raft_backend``, the
+  device and one spare replica slot (``replica_capacity``, the peers and
+  one) to ``ServerConfig``;
 - ``etcdmain/__init__.py``: the ``--raft-backend`` and ``--device``
-  flags; an orderly stop prints ``launches_line`` (a definition the
-  reference does not have); ``gateway start`` and ``grpc-proxy start``
-  exit 2, since ``proxy/`` is not ported (ROADMAP A19b), so ``parse_urls``
-  is not imported; the names it prints are the port's.
+  flags; an orderly stop, and SIGHUP, print ``launches_line`` (a
+  definition the reference does not have); the names it prints are the port's;
+- ``pkg/traceutil.py``: the logger is named after the port's package;
+- ``etcdctl/__init__.py``: the deprecation note of ``snapshot
+  restore|status`` names the port's etcdutl;
+- ``proxy/tcpproxy.py``: a backend dial's timeout is taken off the
+  connection once it is made (ROADMAP C22).
 """
 
 import ast
@@ -67,6 +74,12 @@ version.py transport/__init__.py transport/metrics.py transport/tcp.py
 client/srv.py discovery.py etcdutl/__init__.py etcdutl/__main__.py
 etcdhttp.py gatewayjson.py v2http.py etcdmain/__init__.py __main__.py
 pkg/report.py tools/benchmark.py
+pkg/traceutil.py pkg/notify.py pkg/mock.py pkg/proxy.py
+client/snapshot.py client/v2.py client/namespace.py client/naming.py
+client/ordering.py client/mirror.py client/leasing.py
+proxy/__init__.py proxy/tcpproxy.py proxy/httpproxy.py proxy/grpcproxy.py
+etcdctl/__init__.py etcdctl/__main__.py
+pb/raft_pb2.py pb/kv_pb2.py pb/convert.py pb/kv_convert.py pb/__init__.py
 """.split()
 
 
@@ -98,17 +111,15 @@ _BOOTSTRAP = _Normalize(args=("device",), stmt=lambda s: (
     isinstance(s, ast.If) and "_bootstrap_log" in ast.unparse(s)))
 _RESOLVE = _Normalize(stmt=lambda s: (
     isinstance(s, ast.If) and "resolve_device" in ast.unparse(s)))
-_STATE_IMPORT = _Normalize(stmt=lambda s: (
-    isinstance(s, ast.ImportFrom) and s.module == "batched.state"))
 _CONFIG = _Strings(strings=(("tpu", "host"),), stmt=lambda s: (
     isinstance(s, ast.AnnAssign) and ast.unparse(s.target) == "device"))
 _EMBED_CONFIG = _Normalize(stmt=lambda s: (
     isinstance(s, ast.AnnAssign)
     and ast.unparse(s.target) in ("raft_backend", "device")))
-_START_ETCD = _Normalize(args=("raft_backend", "device"), stmt=lambda s: (
+_START_ETCD = _Normalize(args=("raft_backend", "device", "replica_capacity"),
+                         stmt=lambda s: (
     isinstance(s, ast.Assign) and ast.unparse(s.targets[0]) == "device"
     or isinstance(s, ast.If) and "raft_backend" in ast.unparse(s.test)))
-_NO_PARSE_URLS = _Normalize(names=("parse_urls",))
 _BACKEND_FLAGS = _Normalize(stmt=lambda s: (
     isinstance(s, ast.Expr) and ("--raft-backend" in ast.unparse(s)
                                  or "--device" in ast.unparse(s))))
@@ -116,29 +127,32 @@ _LAUNCH_LINE = _Strings(
     strings=(("etcd_tpu_torch", "etcd_tpu"),), stmt=lambda s: (
         isinstance(s, ast.Expr) and "launches_line" in ast.unparse(s)))
 _PORT_PRINTS = _Strings(strings=(("etcd_tpu_torch", "etcd_tpu"),))
-_NO_BODY = _Normalize(stmt=lambda s: True)
+_DIAL_TIMEOUT_ONLY = _Normalize(stmt=lambda s: (
+    isinstance(s, ast.Expr) and ast.unparse(s) == "out.settimeout(None)"))
+_DEPRECATED = ("etcdctl snapshot restore/status are deprecated; use `python "
+               "-m ")
+_UTL_NAME = _Strings(strings=((_DEPRECATED + "etcd_tpu_torch.",
+                               _DEPRECATED + "etcd_tpu."),))
 
 # {module: {definition: (reference normalizer, port normalizer)}}
 DIFFERENCES = {
     "pkg/rpctypes.py": {"<module>": (_SAME, _PORT_NAMES)},
     "pkg/schedule.py": {"FIFOScheduler._run": (_SAME, _PORT_NAMES)},
     "server/server.py": {
-        "<module>": (_SAME, _STATE_IMPORT),
         "<ServerConfig>": (_SAME, _CONFIG),
         "EtcdServer.__init__": (_SAME, _RESOLVE),
         "EtcdServer._boot_raft_tpu": (_SAME, _BOOTSTRAP),
     },
     "embed/config.py": {"<Config>": (_SAME, _EMBED_CONFIG)},
-    "embed/etcd.py": {"<module>": (_SAME, _STATE_IMPORT),
-                      "start_etcd": (_SAME, _START_ETCD)},
+    "embed/etcd.py": {"start_etcd": (_SAME, _START_ETCD)},
     "etcdmain/__init__.py": {
-        "<module>": (_NO_PARSE_URLS, _SAME),
         "_add_member_flags": (_SAME, _BACKEND_FLAGS),
         "_run_etcd": (_SAME, _LAUNCH_LINE),
-        "_run_gateway": (_NO_BODY, _NO_BODY),
-        "_run_grpc_proxy": (_NO_BODY, _NO_BODY),
         "main": (_SAME, _PORT_PRINTS),
     },
+    "pkg/traceutil.py": {"Trace.__init__": (_SAME, _PORT_NAMES)},
+    "etcdctl/__init__.py": {"cmd_snapshot": (_SAME, _UTL_NAME)},
+    "proxy/tcpproxy.py": {"TCPProxy._serve": (_SAME, _DIAL_TIMEOUT_ONLY)},
 }
 
 # Definitions a copy has and its reference does not.
@@ -179,11 +193,11 @@ def test_every_module_names_its_reference():
 
 def test_the_copies_are_the_servers_import_closure():
     """Every etcd_tpu module that the server, the RPC service, the
-    functional cluster, etcdmain (with embed) and the benchmark tool
-    import (at module level or lazily), other than the ones earlier
-    slices ported, is one of the copies: the slice is the whole closure,
-    but for ``proxy/``, which etcdmain imports lazily for ``gateway`` and
-    ``grpc-proxy`` and which is not ported yet (ROADMAP A19b)."""
+    functional cluster, etcdmain (with embed, and the proxies it starts
+    for ``gateway`` and ``grpc-proxy``), the benchmark tool, etcdctl, the
+    client recipes, ``pb/`` and the ``pkg`` leaves import (at module level
+    or lazily), other than the ones earlier slices ported, is one of the
+    copies: the slices are the whole closure."""
     earlier = set()
     for dirpath, _dirs, files in os.walk(os.path.join(ROOT, "etcd_tpu_torch")):
         for f in files:
@@ -194,14 +208,20 @@ def test_the_copies_are_the_servers_import_closure():
     seen, stack = set(), ["server/__init__.py", "v3rpc/__init__.py",
                           "functional/__init__.py", "embed/config.py",
                           "etcdmain/__init__.py", "__main__.py",
-                          "tools/benchmark.py"]
+                          "tools/benchmark.py", "etcdctl/__init__.py",
+                          "etcdctl/__main__.py", "pb/__init__.py",
+                          "client/snapshot.py", "client/v2.py",
+                          "client/namespace.py", "client/naming.py",
+                          "client/ordering.py", "client/leasing.py",
+                          "proxy/httpproxy.py", "pkg/traceutil.py",
+                          "pkg/notify.py", "pkg/mock.py", "pkg/proxy.py"]
     while stack:
         rel = stack.pop()
         if rel in seen:
             continue
         seen.add(rel)
-        if rel in earlier or rel.startswith("proxy/"):
-            continue  # ported before, with its own closure; or not yet
+        if rel in earlier:
+            continue  # ported before, with its own closure
         path = os.path.join(ROOT, "etcd_tpu", rel)
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -217,5 +237,5 @@ def test_the_copies_are_the_servers_import_closure():
                 if os.path.exists(os.path.join(ROOT, "etcd_tpu", c)):
                     stack.append(c)
     missing = sorted(seen - set(COPIES) - earlier)
-    assert missing == ["proxy/grpcproxy.py", "proxy/tcpproxy.py"], missing
-    assert len(seen & set(COPIES)) > 40, sorted(seen)
+    assert missing == [], missing
+    assert len(seen & set(COPIES)) > 60, sorted(seen)
