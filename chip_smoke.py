@@ -31,9 +31,16 @@ oracle replay of its committed stream, and a 1,024-row capture restored
 into another member), holds plane-on members on CUDA against the CPU
 and runs a plane dispatch beside another member's capture in a thread,
 drives the raft.Node boundary (three BatchedNodes at
-raftexample's default width: 6,032 puts, a third forwarded, ReadIndex,
+raftexample's default width: 4,032 puts, a third forwarded, ReadIndex,
 a transfer, a voter removed and re-added, a compaction with a MsgSnap
-catch-up), holds CUDA nodes against CPU nodes Ready for Ready, and runs
+catch-up), holds CUDA nodes against CPU nodes Ready for Ready, replays
+every committed interaction script (etcd_tpu_torch/rafttest/testdata:
+one BatchedNode a trace node at R = 1..7, W = 64) through the port's
+BatchedInteractionEnv on the card and on the CPU beside the port's
+scalar InteractionEnv, directive for directive (the scalar text against
+the expected blocks, no state divergence, CUDA equal to the CPU, every
+kernel form the nodes launched held against its plain version on every
+distinct input of the CPU env's rounds), and runs
 raftexample's replicated KV (three members, each in its own threads,
 with a WAL and snapshots on disk, one stopped and restarted from them),
 drives the multi-raft server (three MultiRaftMembers of G=1,024 groups,
@@ -75,14 +82,14 @@ every main-path and node-path form warm and L2-cold; the slice phase
 counts launches per kernel and per form), a line with each phase's wall
 seconds, then a JSON line {"kernels": [...]} with every kernel's
 launches on each path (the engine's, each deliver shape's, the hosted
-one, the plane-on hosted one, the node's, raftexample's, the hosting
-server's and its worker processes', the etcd server's, the booted
-members', each counted from 0 around its run), at its most launched
-engine form its device time warm and cold, plain-version time and bound,
-and every form with its launches per engine round (under each deliver
-shape), rawnode, node, server and booted member (one member's node
-round) and hosting member round (in process and in a worker); then the
-card's name and
+one, the plane-on hosted one, the node's, the interaction harness's,
+raftexample's, the hosting server's and its worker processes', the etcd
+server's, the booted members', each counted from 0 around its run), at
+its most launched engine form its device time warm and cold,
+plain-version time and bound, and every form with its launches per
+engine round (under each deliver shape), rawnode, node, interaction
+node, server and booted member (one member's node round) and hosting
+member round (in process and in a worker); then the card's name and
 power limit as nvidia-smi reports them; then, last,
 {"ok": true, "device": {...}}.
 """
@@ -225,7 +232,7 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
         forms = []
         for v in mine:
             path_rounds = ({"node": "node", "server": "server",
-                            "boot": "boot"}
+                            "boot": "boot", "interaction": "interaction"}
                            if v["n"] == 1 else
                            {"hosting": "hosting",
                             "hosting_proc": "hosting_proc"}
@@ -578,8 +585,9 @@ SHAPES = ("lanes", "merged", "vectorized")
 PARITY_GROUPS = 128
 # Rounds of the parity schedule per deliver shape: the sender scans' eager
 # CPU round is ~3x the vectorized one's, so they stop 4 rounds into the
-# schedule's partition window (rounds 20-35).
-PARITY_ROUNDS = {"lanes": 24, "merged": 24, "vectorized": 60}
+# schedule's partition window (rounds 20-35); the vectorized fold runs
+# the window and 5 rounds after it heals.
+PARITY_ROUNDS = {"lanes": 24, "merged": 24, "vectorized": 40}
 
 
 def run_parity(dev, plain_dev=torch.device("cpu"), shapes=SHAPES) -> None:
@@ -1864,11 +1872,11 @@ def run_plane_parity(dev, plain_dev=torch.device("cpu")) -> None:
 # BatchedNode's): R = 3, a W = 32,768 term ring, election 10 ticks,
 # heartbeat 1, E = 8, P = 8, pre-vote and check-quorum.
 NODE_WINDOW = 32768
-NODE_PUTS = 6_000
+NODE_PUTS = 4_000
 PUTS_PER_ROUND = 8  # P: what a leader appends in one round
 # Pump rounds of each load block of node_schedule: at 8 puts a round,
-# the node phase makes 6,032 puts, node_parity 352.
-NODE_LOAD = (240, 180, 60, 90, 180)
+# the node phase makes 4,032 puts, node_parity 352.
+NODE_LOAD = (160, 120, 40, 60, 120)
 PARITY_LOAD = (12, 10, 6, 8, 4)
 
 
@@ -2178,7 +2186,7 @@ def check_node_set(ns: NodeSet) -> int:
 
 def run_node(dev) -> dict:
     """Three BatchedNodes on the card at raftexample's default width,
-    the node schedule at NODE_LOAD (6,032 puts). Returns the launches
+    the node schedule at NODE_LOAD (4,032 puts). Returns the launches
     and form launches of its run and its node rounds."""
     from etcd_tpu_torch.batched import hopper_kernels as hk
 
@@ -2239,6 +2247,208 @@ def run_node_parity(dev, plain_dev=torch.device("cpu")) -> None:
     log("node_parity", equal=True, puts=puts[0], pump_rounds=sets[0].rounds,
         node_rounds=sets[0].node_rounds, wall_s=time.perf_counter() - t0,
         captures=captures, **steps)
+
+
+# -- phase: interaction (the committed scripts through the batched env) ---------
+
+INTERACTION_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "etcd_tpu_torch", "rafttest", "testdata")
+# What state_divergences reads: the rawnode's host mirrors.
+INTERACTION_MIRRORS = ("m_term", "m_vote", "m_commit", "m_role", "m_lead",
+                       "m_last", "m_snap", "m_ring")
+
+
+class PlainInputs:
+    """While active, the kernel wrappers record every distinct input they
+    are given on the CPU (where they run their plain versions), keyed by
+    the form that input launches on CUDA (hopper_kernels.FORM_LAUNCHES'
+    keys); check() holds each form's kernel on the card against its
+    plain version on every recorded input."""
+
+    FORMS = {
+        "quorum_commit": lambda a: (
+            f"quorum_commit_vote commit R={a[1].shape[1]} B=1"),
+        "quorum_vote": lambda a: (
+            f"quorum_commit_vote vote R={a[1].shape[1]} "
+            f"B={a[4] if len(a) > 4 else 1}"),
+        "quorum_commit_vote": lambda a: (
+            f"quorum_commit_vote both R={a[1].shape[1]} B=1"),
+        "term_at_batch": lambda a: (
+            f"term_at_batch K={a[4].shape[1] if a[4].dim() == 2 else 1} "
+            f"W={a[0].shape[1]}"),
+    }
+
+    def __init__(self):
+        self.seen = {}  # form -> {input key: (wrapper, cloned arguments)}
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        from etcd_tpu_torch.batched import hopper_kernels as hk
+
+        self._hk = hk
+        self._wrappers = {name: getattr(hk, name) for name in self.FORMS}
+        for name, fn in self._wrappers.items():
+            setattr(hk, name, self._spy(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._wrappers.items():
+            setattr(self._hk, name, fn)
+
+    def _spy(self, name, fn):
+        def call(*args):
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            if not any(a.is_cuda for a in tensors):
+                form = self.FORMS[name](args)
+                key = tuple((str(a.dtype), tuple(a.shape), a.numpy().tobytes())
+                            if isinstance(a, torch.Tensor) else a
+                            for a in args)
+                self.seen.setdefault(form, {}).setdefault(key, (name, [
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args]))
+                self.calls[form] += 1
+            return fn(*args)
+        return call
+
+    def check(self, dev) -> dict:
+        """Each recorded input on `dev` through its wrapper (the kernel)
+        against the plain version on the CPU, exactly. Returns per form
+        the inputs held, the calls recorded and the largest |error|. The
+        launches made here are not counted."""
+        hk = self._hk
+        plain = {"quorum_commit": hk.quorum_commit_ref,
+                 "quorum_vote": hk.quorum_vote_ref,
+                 "quorum_commit_vote": hk.quorum_commit_vote_ref,
+                 "term_at_batch": hk.term_at_batch_ref}
+        out = {}
+        with hk.recorded_launches():
+            for form, cases in sorted(self.seen.items()):
+                err = 0
+                for j, (name, args) in enumerate(cases.values()):
+                    got = getattr(hk, name)(*[
+                        a.to(dev) if isinstance(a, torch.Tensor) else a
+                        for a in args])
+                    got = (tuple(g.cpu() for g in got)
+                           if isinstance(got, tuple) else got.cpu())
+                    err = max(err, assert_equal(
+                        f"interaction {form} input {j}", got,
+                        plain[name](*args)))
+                out[form] = {"inputs": len(cases), "calls": self.calls[form],
+                             "max_abs_err": err}
+        return out
+
+
+def interaction_differences(a, b) -> list:
+    """Where two of the port's BatchedInteractionEnvs differ: each node's
+    host mirrors (arrays and dtypes) and applied history, and the
+    in-flight messages, field for field."""
+    if len(a.nodes) != len(b.nodes):
+        return [f"nodes: {len(a.nodes)} vs {len(b.nodes)}"]
+    out = []
+    for i, (x, y) in enumerate(zip(a.nodes, b.nodes)):
+        for name in INTERACTION_MIRRORS:
+            u, v = getattr(x.node.rn, name), getattr(y.node.rn, name)
+            if u.dtype != v.dtype or not np.array_equal(u, v):
+                out.append(f"node {i + 1} {name}")
+        if node_plain(x.history) != node_plain(y.history):
+            out.append(f"node {i + 1} applied history")
+    if node_plain(a.messages) != node_plain(b.messages):
+        out.append("in-flight messages")
+    return out
+
+
+def run_interaction(dev, plain_dev=torch.device("cpu")) -> dict:
+    """Every committed interaction script (etcd_tpu_torch/rafttest/
+    testdata: capacities R = 1..7, W = 64) through the port's
+    BatchedInteractionEnv on `dev` and, side by side, on `plain_dev`,
+    with the port's scalar InteractionEnv as the oracle. After every
+    directive: the scalar env's text equals the script's expected block;
+    state_divergences(scalar, `dev` env) is empty (log bounds, applied
+    history and conf state at full stabilizes, as the CPU tests run it);
+    the `dev` env's mirrors, applied history and in-flight messages equal
+    the `plain_dev` env's. Launches are counted from 0 around the run
+    (on `plain_dev` the wrappers run their plain versions and count
+    none); then every form the nodes launched is held against its plain
+    version on each distinct input the `plain_dev` env's rounds gave it.
+    Returns the path's launches, form launches and node rounds."""
+    import glob
+
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.rafttest import InteractionEnv, parse_file
+    from etcd_tpu_torch.rafttest.batched_env import (
+        BatchedInteractionEnv, state_divergences)
+
+    scripts = sorted(glob.glob(os.path.join(INTERACTION_DATA, "*.txt")))
+    if len(scripts) < 11:
+        raise AssertionError(f"interaction: {len(scripts)} scripts")
+    capacities, directives, rounds, captures, capture_s = {}, 0, 0, 0, []
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    with PlainInputs() as inputs:
+        for path in scripts:
+            name = os.path.basename(path)
+            datas = parse_file(path)
+            r = sum(int(d.cmd_args[0].key) for d in datas
+                    if d.cmd == "add-nodes")
+            capacities[name] = r
+            oracle = InteractionEnv()
+            envs = [BatchedInteractionEnv(r, device=dev),
+                    BatchedInteractionEnv(r, device=plain_dev)]
+            try:
+                for d in datas:
+                    text = oracle.handle(d)
+                    if text.rstrip("\n") != d.expected.rstrip("\n"):
+                        raise AssertionError(f"interaction {d.pos}: the "
+                                             "scalar env's text differs")
+                    for env in envs:
+                        env.handle(d)
+                    quiet = d.cmd == "stabilize" and not any(
+                        not a.vals for a in d.cmd_args)
+                    div = state_divergences(oracle, envs[0],
+                                            check_conf=quiet)
+                    if div:
+                        raise AssertionError(f"interaction {d.pos}: {d.cmd} "
+                                             f"diverges: {div}")
+                    diff = interaction_differences(*envs)
+                    if diff:
+                        raise AssertionError(f"interaction {d.pos}: {dev} "
+                                             f"!= {plain_dev}: {diff}")
+                    directives += 1
+                nodes = [bn.node for bn in envs[0].nodes]
+                rounds += sum(n.rounds for n in nodes)
+                captures += sum(n.rn.captures for n in nodes)
+                capture_s += [c["seconds"] for n in nodes
+                              for c in n.rn.capture_stats]
+                if dev.type == "cuda" and any(
+                        n.rn.captures != (n.rounds > 0) for n in nodes):
+                    raise AssertionError(f"interaction {name}: captures "
+                                         f"{[n.rn.captures for n in nodes]}")
+            finally:
+                for env in envs:
+                    env.close()
+            gc.collect()
+    wall_s = time.perf_counter() - t0
+    launches, forms = dict(hk.LAUNCHES), dict(hk.FORM_LAUNCHES)
+    for kernel, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{kernel} was never launched on the "
+                                 "interaction path")
+    held = inputs.check(dev)
+    if set(forms) - set(held):
+        raise AssertionError(f"interaction: forms launched with no input "
+                             f"held: {sorted(set(forms) - set(held))}")
+    log("interaction", scripts=len(scripts), capacities=capacities,
+        config="election 3, heartbeat 1, W=64, E=8, P=4, no pre-vote, no "
+        "check-quorum", directives=directives, node_rounds=rounds,
+        captures=captures, capture_s={"sum": sum(capture_s),
+                                      "max": max(capture_s, default=0.0)},
+        wall_s=wall_s, launches=launches,
+        launches_per_node_round={k: v / rounds for k, v in launches.items()},
+        form_launches_per_node_round={k: v / rounds
+                                      for k, v in sorted(forms.items())},
+        forms_held=held,
+        card=smi("name,power.limit") if dev.type == "cuda" else str(dev))
+    return {"launches": launches, "forms": forms, "rounds": rounds}
 
 
 # -- phase: raftexample (three members, each in its own threads) ---------------
@@ -4247,7 +4457,7 @@ BOOT_RANGES = 500           # the tool's ranges, a consistency a member
 BOOT_CHECKED = 500          # puts of distinct keys and random values, each
                             # read back on every member
 BOOT_CHECK_CLIENTS = 20
-C17_SECONDS = 5.0           # reads a run: none, a follower, the leader slowed
+C17_SECONDS = 4.0           # reads a run: none, a follower, the leader slowed
 
 
 def bench_tool(endpoint: str, device, *args) -> dict:
@@ -4602,6 +4812,7 @@ def main() -> int:
     timed("plane_parity", run_plane_parity, dev)
     paths["node"] = timed("node", run_node, dev)
     timed("node_parity", run_node_parity, dev)
+    paths["interaction"] = timed("interaction", run_interaction, dev)
     paths["raftexample"] = {"launches": timed("raftexample",
                                               run_raftexample, dev)}
     paths["hosting"] = timed("hosting", run_hosting, dev)

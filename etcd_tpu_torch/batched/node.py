@@ -47,7 +47,10 @@ the one its sender has queued joins it up to that many entries (a
 scalar-core leader sends one append a proposal, and a round takes one
 message a sender: without the merge its backlog drained one proposal a
 round; ROADMAP C18). A batched leader sends at most one append a round
-to a follower, so the merge does not fire between batched members.
+to a follower, so between batched members the merge fires only where a
+host holds a leader's appends of several rounds and delivers them
+together, as the interaction harness does: the follower then acks once
+where the JAX package's acks once per append (ROADMAP C23).
 
 Threads: ``ready``/``advance``/``create_snapshot``/``compact`` run on one
 thread (the host's Ready loop); ``tick``, ``propose``, ``step``,

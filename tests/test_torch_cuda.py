@@ -991,3 +991,33 @@ def test_server_phase_at_a_small_size(dev):
     out = chip_smoke.run_server(dev, puts=200, clients=20, ranges=100,
                                 snapshots=(300, 250))
     assert all(v > 0 for v in out["launches"].values())
+
+
+def test_interaction_harness_on_the_card(dev):
+    """Two committed scripts through BatchedInteractionEnv on the card
+    and on the CPU beside the scalar env: no divergence, CUDA equal to
+    the CPU after every directive, one capture a node; close() drops the
+    nodes."""
+    import os
+
+    from etcd_tpu_torch.rafttest import InteractionEnv, parse_file
+    from etcd_tpu_torch.rafttest.batched_env import (
+        BatchedInteractionEnv, state_divergences)
+
+    for name, r in (("single_node.txt", 1), ("campaign.txt", 3)):
+        datas = parse_file(os.path.join(chip_smoke.INTERACTION_DATA, name))
+        oracle = InteractionEnv()
+        envs = [BatchedInteractionEnv(r), BatchedInteractionEnv(r, "cpu")]
+        assert envs[0].device.type == "cuda"
+        for d in datas:
+            oracle.handle(d)
+            for env in envs:
+                env.handle(d)
+            full = d.cmd == "stabilize" and all(a.vals for a in d.cmd_args)
+            assert state_divergences(oracle, envs[0], check_conf=full) == [], (
+                d.pos)
+            assert chip_smoke.interaction_differences(*envs) == [], d.pos
+        assert all(bn.node.rn.captures == 1 for bn in envs[0].nodes)
+        for env in envs:
+            env.close()
+            assert env.nodes == []

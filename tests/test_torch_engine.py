@@ -84,16 +84,19 @@ def test_engine_control_ops_match_jax(engines):
 
 
 def test_entry_points_default_to_the_gpu():
-    """Without a device argument the engine, the bench setup and
-    make_step_round go to CUDA; with no CUDA they raise."""
+    """Without a device argument the engine, the bench setup,
+    make_step_round and the batched interaction env go to CUDA; with no
+    CUDA they raise."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     cfg = benchlib.bench_config(2)
     from etcd_tpu_torch.batched import make_step_round
+    from etcd_tpu_torch.rafttest.batched_env import BatchedInteractionEnv
 
     for build in (lambda: MultiRaftEngine(cfg),
                   lambda: benchlib.make_bench_engine(2),
-                  lambda: make_step_round(cfg)):
+                  lambda: make_step_round(cfg),
+                  lambda: BatchedInteractionEnv(3)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
 
@@ -150,7 +153,8 @@ def test_port_imports_no_jax():
     transport, the HTTP listeners, etcdutl, the benchmark tool and the
     member-process harness; and the outer client surfaces: etcdctl, the
     grpc, http and tcp proxies, the client recipes, ``pb/`` and the
-    ``pkg`` leaves traceutil, notify, mock and proxy),
+    ``pkg`` leaves traceutil, notify, mock and proxy; the interaction
+    harness and the lock-order recorder),
     building and loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
@@ -215,7 +219,11 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.pb.kv_pb2", "etcd_tpu_torch.pb.convert",
           "etcd_tpu_torch.pb.kv_convert", "etcd_tpu_torch.pkg.traceutil",
           "etcd_tpu_torch.pkg.notify", "etcd_tpu_torch.pkg.mock",
-          "etcd_tpu_torch.pkg.proxy"):
+          "etcd_tpu_torch.pkg.proxy", "etcd_tpu_torch.rafttest",
+          "etcd_tpu_torch.rafttest.datadriven",
+          "etcd_tpu_torch.rafttest.interaction",
+          "etcd_tpu_torch.rafttest.batched_env",
+          "etcd_tpu_torch.analysis", "etcd_tpu_torch.analysis.lockorder"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))

@@ -19,7 +19,7 @@ import time
 
 import pytest
 
-from etcd_tpu.analysis.lockorder import LockOrderRecorder
+from etcd_tpu_torch.analysis.lockorder import LockOrderRecorder
 from etcd_tpu_torch.batched.faults import (
     ChaosHarness,
     FaultSpec,
