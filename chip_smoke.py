@@ -103,6 +103,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from collections import deque
@@ -257,7 +258,18 @@ def kernel_rows(variants: list, err: dict, paths: dict) -> list:
             "ms": top["ms"], "cold_ms": top["cold_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
-            "form": top["form"], "forms": forms})
+            "form": top["form"], "forms": forms,
+            # BASELINE #2-#5 (the sweep phase): launches a round per form
+            # (R = 5 in #3, N = 3,145,728 rows in #5), and #3's and
+            # #5's forms' call times on their round's own inputs.
+            "sweep_forms": {
+                path: {"rounds": p["rounds"],
+                       "launches_per_round": {
+                           k: v / p["rounds"] for k, v in p["forms"].items()
+                           if k.startswith(name + " ")},
+                       "timed": {k: v for k, v in p.get("timed", {}).items()
+                                 if k.startswith(name + " ")}}
+                for path, p in paths.items() if path.startswith("sweep_")}})
     return rows
 
 
@@ -268,6 +280,7 @@ def run_slice(dev):
     """The main path, with every launch count set to 0 just before it:
     returns the launches per kernel and per (kernel, form), and the
     engine and its proposal vector."""
+    from etcd_tpu_torch.analysis.sentinels import CompileBudget
     from etcd_tpu_torch.batched import hopper_kernels as hk
     from etcd_tpu_torch.tools.benchlib import (
         make_bench_engine, measure_commit_p50, measure_rate)
@@ -278,11 +291,15 @@ def run_slice(dev):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     before = eng.commits().copy()
-    # Five runs each, for a median and a spread.
-    rates = [measure_rate(eng, props, rounds_per_call=8, calls=4)
-             for _ in range(5)]
+    # Five runs each, for a median and a spread; after the first one's
+    # warm-up, no round captures anew.
+    rates = [measure_rate(eng, props, rounds_per_call=8, calls=4)]
+    budget = CompileBudget(0).track("slice", eng)
+    rates += [measure_rate(eng, props, rounds_per_call=8, calls=4)
+              for _ in range(4)]
     after = eng.commits()
     p50s = [measure_commit_p50(eng) for _ in range(5)]
+    budget.check()
     launches = dict(hk.LAUNCHES)
     forms = dict(hk.FORM_LAUNCHES)
     rounds = eng.rounds
@@ -305,6 +322,7 @@ def run_slice(dev):
         launches=launches,
         launches_per_round={k: v / rounds for k, v in launches.items()},
         form_launches_per_round={k: v / rounds for k, v in forms.items()},
+        captures_after_warmup=budget.report(),
         min_commit=int(after.min()), max_commit=int(after.max()))
     return launches, forms, eng, props
 
@@ -431,15 +449,23 @@ def run_profile(eng, props) -> float:
     eager_prof = profile_rounds(eager, rounds, walls["eager"])
     walls["eager_after_profiling"] = wall_ms(eager, rounds)
     # Host syncs: a capture fails on any sync inside the round, and the
-    # replays run with PyTorch's sync debug mode raising on one.
-    torch.cuda.set_sync_debug_mode("error")
+    # warm replays and eager rounds run under the engine's sync guard
+    # (analysis.sentinels.round_guard) with ETCD_TPU_TRANSFER_GUARD=
+    # disallow: PyTorch's sync debug mode raises on one.
+    old_guard = os.environ.get("ETCD_TPU_TRANSFER_GUARD")
+    os.environ["ETCD_TPU_TRANSFER_GUARD"] = "disallow"
     try:
         eng.run_rounds(4, tick=True, propose_n=props)
+        eng.step_round(tick=True, propose_n=props)
     finally:
-        torch.cuda.set_sync_debug_mode(0)
+        if old_guard is None:
+            os.environ.pop("ETCD_TPU_TRANSFER_GUARD")
+        else:
+            os.environ["ETCD_TPU_TRANSFER_GUARD"] = old_guard
     torch.cuda.synchronize()
     log("profile", groups=MAIN_GROUPS, rounds=rounds, graphed=graphed,
         eager=eager_prof, host_syncs_per_round="0, proven by capture",
+        warm_replays="under round_guard, ETCD_TPU_TRANSFER_GUARD=disallow",
         kernel_forms_in_round=in_round_times(eng, props, graphed),
         wall_ms_per_round=walls, captures=eng.capture_stats,
         graph_pool_bytes=graph_pool_bytes(),
@@ -702,6 +728,7 @@ def run_shapes(dev, groups: int = MAIN_GROUPS) -> dict:
     captures and graph pool. Each shape's launches are counted from 0
     around its own calls. Returns path -> launches for the kernels
     line."""
+    from etcd_tpu_torch.analysis.sentinels import CompileBudget
     from etcd_tpu_torch.batched import hopper_kernels as hk
     from etcd_tpu_torch.tools.benchlib import (
         make_bench_engine, measure_commit_p50, measure_rate)
@@ -753,6 +780,11 @@ def run_shapes(dev, groups: int = MAIN_GROUPS) -> dict:
     for shape, (eng, props) in engines.items():
         errs[shape] = round_forms_equal_plain(eng, props)
     assert_shapes_agree(engines, "after the kernel checks")
+    # Both tick values are captured by now: the measurements below
+    # replay them and capture nothing.
+    budget = CompileBudget(0)
+    for shape, (eng, _props) in engines.items():
+        budget.track(shape, eng)
     for shape, count in launches.items():
         for name, v in count.items():
             if v == 0:
@@ -791,6 +823,8 @@ def run_shapes(dev, groups: int = MAIN_GROUPS) -> dict:
                                   "forms": forms[shape],
                                   "rounds": rounds[shape]}
     assert_shapes_agree(engines, "after the measurements")
+    budget.check()
+    log("shapes_budget", captures_after_warmup=budget.report())
     del engines
     if cuda:
         torch.cuda.empty_cache()
@@ -811,7 +845,7 @@ def run_shapes(dev, groups: int = MAIN_GROUPS) -> dict:
 # -- phase: shadow (every shape against the port's scalar Raft) ------------------
 
 
-def run_shadow(dev, groups: int = 32) -> None:
+def run_shadow(dev, groups: int = 16) -> None:
     """The engine on `dev` against the shadow cluster (the port's scalar
     raft core, replaying the engine's deliver order) for each shape, at
     test_differential's config and `groups` groups, on
@@ -2651,7 +2685,7 @@ HOSTING_PUTS = 3000
 HOSTING_VALUE = 64      # bytes
 HOSTING_INFLIGHT = 4    # puts in flight per group
 HOSTING_READS = 96      # linearizable_get samples
-HOSTING_PARITY_GROUPS = 256
+HOSTING_PARITY_GROUPS = 128
 
 
 def hosting_config(groups: int, **kw):
@@ -4760,15 +4794,161 @@ def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase: sweep (BASELINE #2-#5, the frontier, the batch, the phases) --------
+
+# Cuts of the tools' own depth for chip_smoke's time (each keeps every
+# schedule feature; the groups are the tools' accelerator sizes): the
+# frontier's calls a point 8 -> 2, the batch's calls 8 -> 4 and the
+# phase probe's replays a segment 32 -> 16.
+SWEEP_FRONTIER_CALLS = 2
+SWEEP_BATCH_CALLS = 4
+SWEEP_PROBE_ROUNDS = 16
+
+
+def time_round_forms(eng, props) -> dict:
+    """Every kernel form of one eager round of `eng`, on the inputs the
+    round gives it: held equal to its plain version, then its time a
+    call and its plain version's, back to back on the stream between
+    two CUDA events (kernel_times.stream_ms: the device's time where the
+    card is the slower, the host's launch time where it is not; the
+    profiler's records have been seen to come back short late in a long
+    run), and its bound on those inputs (kernel_times.form_cost)."""
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.tools.kernel_times import bound_ms, form_cost, stream_ms
+
+    plain = {hk.quorum_commit: hk.quorum_commit_ref,
+             hk.quorum_vote: hk.quorum_vote_ref,
+             hk.term_at_batch: hk.term_at_batch_ref}
+    out = {}
+    for form, (fn, args) in sorted(round_forms(eng, props).items()):
+        err = assert_equal(f"sweep G={eng.cfg.num_groups} {form}",
+                           fn(*args), plain[fn](*args))
+        b_ms, b_by = bound_ms(*form_cost(form, args))
+        out[form] = {"max_abs_err": err,
+                     "call_ms": stream_ms(lambda: fn(*args)),
+                     "plain_call_ms": stream_ms(lambda: plain[fn](*args),
+                                                iters=5),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def run_sweep(dev, scratch: str) -> dict:
+    """The engine's sweep tools on the card, at the sizes they run there:
+    bench_sweep's BASELINE configs #2-#5 (1,024 groups; 10,240 at R = 5;
+    102,400 under timer elections; 1,048,576 with half the groups joint
+    and a ReadIndex batch on every leader each block), each with its
+    launches per form counted from 0 around its own run and every form
+    of one more eager round held against its plain version on that
+    round's inputs, those of #3 (R = 5) and #5 (G = 1,048,576) timed a
+    call too; frontier_sweep with its pipeline gate and its cold/warm
+    start probe; gpu_batch's sections (a)-(e); phaseprobe's table.
+    Everything runs under ETCD_TPU_TRANSFER_GUARD=disallow (the warm
+    replays and eager rounds under the sync guard) and every measured
+    loop is held to zero new captures after its warm-up: the closing
+    line sums what their budgets counted. Returns path -> launches."""
+    from etcd_tpu_torch.analysis import sentinels
+    from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.tools import (bench_sweep, frontier_sweep, gpu_batch,
+                                      phaseprobe)
+
+    cuda = dev.type == "cuda"
+    paths = {}
+    after_warmup = {}  # tool -> captures its measured loops' budgets counted
+    old_guard = os.environ.get("ETCD_TPU_TRANSFER_GUARD")
+    os.environ["ETCD_TPU_TRANSFER_GUARD"] = "disallow"
+    try:
+        for c, sweep in sorted(bench_sweep.CONFIGS.items()):
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            hk.reset_launches()
+            t0 = time.perf_counter()
+            rec, eng = bench_sweep.run_config(c, sweep.groups, sweep.rounds,
+                                              sweep.calls, device=dev)
+            after_warmup[f"bench_sweep #{c}"] = rec["captures_after_warmup"]
+            path = paths[f"sweep_{c}"] = {"launches": dict(hk.LAUNCHES),
+                                          "forms": dict(hk.FORM_LAUNCHES),
+                                          "rounds": eng.rounds}
+            for name, count in hk.LAUNCHES.items():
+                if count == 0:
+                    raise AssertionError(f"sweep #{c}: {name} never launched")
+            # One more eager round, its forms held to their plain
+            # versions (#4 proposes nothing: its leaders come and go).
+            props = torch.zeros(eng.cfg.num_instances, dtype=torch.int32,
+                                device=dev)
+            if c != 4:
+                props[::sweep.replicas] = 2
+            if c in (3, 5):
+                forms = path["timed"] = time_round_forms(eng, props)
+            else:
+                forms = {form: {"max_abs_err": err} for form, err in
+                         round_forms_equal_plain(eng, props).items()}
+            log("sweep", tool="bench_sweep", **rec,
+                seconds=time.perf_counter() - t0,
+                launches=path["launches"],
+                form_launches_per_round={
+                    k: v / eng.rounds for k, v in path["forms"].items()},
+                forms_on_round_inputs=forms)
+            del eng
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        front = frontier_sweep.sweep(
+            os.path.join(scratch, "frontier.json"), dev,
+            groups=None if cuda else [64, 128],
+            calls=SWEEP_FRONTIER_CALLS)
+        after_warmup["frontier_sweep"] = sum(
+            p["captures_after_warmup"] for p in front["points"])
+        log("sweep", tool="frontier_sweep", gate="pipelined == serial",
+            points=front["points"], warm_start=front["warm_start"],
+            seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        batch = gpu_batch.run(os.path.join(scratch, "batch"),
+                              MAIN_GROUPS if cuda else 64, device=dev,
+                              calls=SWEEP_BATCH_CALLS)
+        after_warmup["gpu_batch"] = sum(
+            v["captures_after_warmup"] for k, v in batch.items()
+            if k == "a_headline" or k.startswith("b_deliver_"))
+        log("sweep", tool="gpu_batch", seconds=time.perf_counter() - t0,
+            **{k: v for k, v in batch.items() if k != "e_profile"},
+            e_profile={k: v for k, v in batch["e_profile"].items()
+                       if k != "trace"})
+        t0 = time.perf_counter()
+        probe = phaseprobe.probe(MAIN_GROUPS if cuda else 64,
+                                 rounds=SWEEP_PROBE_ROUNDS, device=dev)
+        print(phaseprobe.table(probe), flush=True)
+        log("sweep", tool="phaseprobe", seconds=time.perf_counter() - t0,
+            segments=probe["segments"],
+            segments_sum_ms=probe["segments_sum_ms"],
+            full_round_graphed_ms=probe["full_round_graphed_ms"])
+    finally:
+        if old_guard is None:
+            os.environ.pop("ETCD_TPU_TRANSFER_GUARD", None)
+        else:
+            os.environ["ETCD_TPU_TRANSFER_GUARD"] = old_guard
+    log("sweep", sync_guard="disallow: no sync reported",
+        captures_after_warmup=after_warmup,
+        captures_after_warmup_total=sum(after_warmup.values()),
+        distinct_round_step=sentinels.distinct_shapes("round_step"),
+        distinct_round_capture=sentinels.distinct_shapes("round_capture"))
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
               file=sys.stderr)
         return 2
     from etcd_tpu_torch import native
+    from etcd_tpu_torch.analysis import sentinels
     from etcd_tpu_torch.batched import hopper_kernels as hk
+    from etcd_tpu_torch.batched.compile_cache import enable_compile_cache
 
     dev = torch.device("cuda", 0)
+    # The native builds' directory, chosen before either build
+    # (ETCD_TPU_COMPILE_CACHE; unset: the git-ignored _build directories).
+    cache_dir = enable_compile_cache()
     card = smi("name,power.limit")
     t0 = time.perf_counter()
     # The two builds of the checkout's sources run side by side: nvcc for
@@ -4784,7 +4964,8 @@ def main() -> int:
         raise RuntimeError("the walog library did not build")
     log("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), build_s=build_s,
-        library=hk.library_path().name, walog_build_s=walog["s"],
+        library=hk.library_path().name, build_dir=cache_dir,
+        walog_build_s=walog["s"],
         walog_library=os.path.basename(walog["path"]))
 
     phase_s = {}
@@ -4806,6 +4987,10 @@ def main() -> int:
     timed("parity", run_parity, dev)
     paths.update(timed("shapes", run_shapes, dev))
     timed("shadow", run_shadow, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as scratch:
+        paths.update(timed("sweep", run_sweep, dev, scratch))
+    gc.collect()
+    torch.cuda.empty_cache()
     paths["hosted"] = timed("hosted", run_hosted, dev)
     timed("hosted_parity", run_hosted_parity, dev)
     paths["plane"] = timed("plane", run_plane, dev)
@@ -4825,7 +5010,9 @@ def main() -> int:
     timed("server_parity", run_server_parity, dev)
     paths["boot"] = timed("boot", run_boot, dev, BOOT_PUTS, BOOT_RANGES,
                           BOOT_CHECKED, paths["server"])
-    log("phases", seconds=phase_s)
+    log("phases", seconds=phase_s, total_s=sum(phase_s.values()),
+        distinct_round_step=sentinels.distinct_shapes("round_step"),
+        distinct_round_capture=sentinels.distinct_shapes("round_capture"))
     print(json.dumps({"kernels": kernel_rows(variants, err, paths)}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.sentinels import note_compile_key
 from .state import BatchedConfig, I32, resolve_device
 
 # Record opcodes (the host-built apply stream).
@@ -180,6 +181,7 @@ def slot_search(kv_key: torch.Tensor, key: torch.Tensor):
     the reference: the first match if any, else the first free slot,
     and 0 for a row with neither (where no write happens)."""
     hit = kv_key == key[:, None]
+    # jitlint: waive(narrow-lane-arith) -- a score of 0..3 a slot, built in int8 to halve the [n, C] pass; it cannot wrap
     score = hit.to(torch.int8) * 2 + (kv_key == 0).to(torch.int8)
     best, slot = score.max(dim=1)
     # With key != 0 the score is 0, 1 or 2; with key == 0 a free slot is
@@ -196,6 +198,11 @@ def dispatch(plane: PlaneState, ops: torch.Tensor, keys: torch.Tensor,
     on the plane's device with no host sync, so an owner of fixed
     buffers can capture it as a CUDA graph."""
     kv_key, kv_rev, kv_val, kv_lease = (getattr(plane, f) for f in KV_LANES)
+    # Recompile sentinel: one key per dispatch shape (capacity, watch
+    # slots, records, rows), its own program kind beside the round.
+    n, c = kv_key.shape
+    note_compile_key("apply_plane", f"C={c}|WS={plane.watch_key.shape[1]}"
+                     f"|A={ops.shape[1]}|n={n}")
     lanes = (kv_key, kv_rev, kv_val, kv_lease)
     plane.tick.add_(tick_add)
     tick = plane.tick
@@ -250,6 +257,7 @@ def gather_rows(plane: PlaneState, rows) -> Tuple[torch.Tensor, ...]:
     kv_val, kv_lease, rev, tick, overflow) of `rows`, one index_select
     per buffer on the plane's device."""
     idx = torch.as_tensor(np.asarray(rows, np.int64)).to(plane.rev.device)
+    note_compile_key("apply_plane", f"gather|m={idx.shape[0]}")
     return tuple(getattr(plane, f).index_select(0, idx)
                  for f in KV_LANES + ("rev", "tick", "overflow"))
 

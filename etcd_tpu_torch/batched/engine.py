@@ -21,16 +21,21 @@ is eager.
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ..analysis.sentinels import note_compile_key, round_guard
 from ..obs.fleet import FleetLayout
+from .compile_cache import enable_compile_cache
 from .graph import RoundGraphs, storages, write_back
 from .state import LEADER, BatchedConfig, I32, init_state, resolve_device
-from .step import NUM_KINDS, empty_msgs, make_step_round, route_view
+from .step import (NUM_KINDS, ROUND_PHASE_SCOPES, empty_msgs, make_step_round,
+                   route_view)
 from .telemetry import NUM_COUNTERS
 
 
@@ -40,6 +45,9 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.to("cpu", copy=True).numpy()
 
 
+ROUTE_SCOPE = dict(ROUND_PHASE_SCOPES)["route"]
+
+
 class MultiRaftEngine:
     def __init__(self, cfg: BatchedConfig, start_index: int = 0,
                  device=None):
@@ -47,6 +55,8 @@ class MultiRaftEngine:
         # concrete shape the round runs.
         self.cfg = cfg = cfg.validate().resolved()
         self.device = dev = resolve_device(device)
+        # The native builds' directory (batched/compile_cache.py).
+        enable_compile_cache()
         self.state = init_state(cfg, start_index, device=dev)
         self.inbox = empty_msgs(
             (cfg.num_instances, cfg.num_replicas, NUM_KINDS),
@@ -87,7 +97,8 @@ class MultiRaftEngine:
         # The storages of the buffers a round's results go into.
         self._storages = storages(tuple(self.state) + tuple(self.inbox))
         # One CUDA graph of the closed-loop round per tick value.
-        self._graphs = RoundGraphs()
+        self._graphs = RoundGraphs(f"engine|{cfg}")
+        note_compile_key("closed_loop", f"{cfg}")
         self.rounds = 0  # rounds stepped since construction
 
     @property
@@ -124,10 +135,11 @@ class MultiRaftEngine:
         outbox into the inbox buffers, one copy per field
         (graph.write_back)."""
         pairs = list(zip(self.state, st, strict=True))
-        for buf, x in zip(self.inbox, outbox, strict=True):
-            routed = route_view(self.cfg, x)
-            pairs.append((buf.view(routed.shape), routed))
-        write_back(pairs, self._storages)
+        with record_function(ROUTE_SCOPE):
+            for buf, x in zip(self.inbox, outbox, strict=True):
+                routed = route_view(self.cfg, x)
+                pairs.append((buf.view(routed.shape), routed))
+            write_back(pairs, self._storages)
 
     # -- driving -------------------------------------------------------------
 
@@ -143,14 +155,19 @@ class MultiRaftEngine:
         """One eager round: deliver pending messages, optionally tick
         every instance, run host control ops (leader transfer,
         ReadIndex), append proposals on leaders, route the outbox.
-        `isolate` cuts instances off the network for this round."""
-        self._round(
-            self._ones_b if tick else self._zeros_b,
-            self._zeros_b if campaign_mask is None else campaign_mask,
-            self._zeros_i if propose_n is None else propose_n,
-            self._zeros_b if isolate is None else isolate,
-            transfer_to, read_req,
-        )
+        `isolate` cuts instances off the network for this round. Every
+        round after the engine's first runs under the sync guard
+        (analysis.sentinels.round_guard): the first loads the kernels
+        and makes the constant tables."""
+        with (round_guard(self.device) if self.rounds > 0
+              else contextlib.nullcontext()):
+            self._round(
+                self._ones_b if tick else self._zeros_b,
+                self._zeros_b if campaign_mask is None else campaign_mask,
+                self._zeros_i if propose_n is None else propose_n,
+                self._zeros_b if isolate is None else isolate,
+                transfer_to, read_req,
+            )
         self.rounds += 1
 
     def _set_props(self, propose_n: Optional[torch.Tensor]) -> None:
@@ -163,12 +180,14 @@ class MultiRaftEngine:
         """`rounds` closed-loop rounds through the graph for `tick`, on
         the current stream, with no host sync (graph.RoundGraphs.run:
         the first use of a tick value runs one eager round, then
-        captures)."""
+        captures; its replays run under the sync guard)."""
+        if rounds <= 0:
+            return
         ticks = self._ones_b if tick else self._zeros_b
         self._graphs.run(tick, lambda: self._round(
             ticks, self._zeros_b, self._props, self._zeros_b), rounds,
             tick=tick)
-        self.rounds += max(rounds, 0)
+        self.rounds += rounds
 
     def run_rounds(self, rounds: int, tick: bool = True,
                    propose_n: Optional[torch.Tensor] = None) -> None:
@@ -213,6 +232,7 @@ class MultiRaftEngine:
                 fence.record()
                 fences.append(fence)
                 while len(fences) > depth:
+                    # jitlint: waive(sync-in-loop) -- the sync IS the pipelining contract: wait on the oldest chunk's fence to bound the chunks in flight at `depth`
                     fences.popleft().synchronize()
 
     def _mask(self, instance_ids, value, like):

@@ -40,6 +40,7 @@ from typing import Callable, Iterable, List, Set, Tuple
 
 import torch
 
+from ..analysis.sentinels import note_compile_key, round_guard
 from . import hopper_kernels as hk
 
 
@@ -76,9 +77,11 @@ def write_back(pairs: List[Tuple[torch.Tensor, torch.Tensor]],
 class RoundGraphs:
     """CUDA graphs of a round body, one per key (for the engine, the
     tick value), in one memory pool: no graph's intermediates outlive
-    its replay."""
+    its replay. `label` names the owner (its kind and config) in the
+    recompile sentinel's "round_capture" keys."""
 
-    def __init__(self) -> None:
+    def __init__(self, label: str = "") -> None:
+        self.label = label
         self._graphs = {}
         self._pool = None
         self.captures = 0  # CUDA graphs captured
@@ -99,6 +102,7 @@ class RoundGraphs:
                 gc.enable()
         self._pool = graph.pool()
         self.captures += 1
+        note_compile_key("round_capture", f"{self.label}|{key}")
         self.capture_stats.append({**info,
                                    "seconds": time.perf_counter() - t0})
         self._graphs[key] = (graph, launches)
@@ -115,10 +119,12 @@ class RoundGraphs:
         """`times` runs of `body` on the current stream with no host
         sync: replays of its graph for `key`. The first use of a key
         runs `body` once eagerly, which loads every kernel it launches,
-        and then captures it. Launch counts of the replays are the
-        captured body's (hopper_kernels.add_launches). All of it holds
-        the device lock (device_work), the count too: members in other
-        threads add to the same counts."""
+        and then captures it; the replays, warm dispatch all, run under
+        the sync guard (analysis.sentinels.round_guard). Launch counts
+        of the replays are the captured body's
+        (hopper_kernels.add_launches). All of it holds the device lock
+        (device_work), the count too: members in other threads add to
+        the same counts."""
         if times <= 0:
             return
         with device_work():
@@ -128,6 +134,7 @@ class RoundGraphs:
                 times -= 1
                 entry = self._capture(key, body, info)
             graph, launches = entry
-            for _ in range(times):
-                graph.replay()
+            with round_guard():
+                for _ in range(times):
+                    graph.replay()
             hk.add_launches(launches, times)

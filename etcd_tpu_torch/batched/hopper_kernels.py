@@ -160,7 +160,8 @@ def _launchers():
 # -- argument checks and the launch ------------------------------------------------
 
 
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device):
     if x.dtype != dtype:
         raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
     if x.shape != shape:
@@ -176,7 +177,7 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch(kernel: str, fn, dev: torch.device, *args) -> None:
+def _launch(kernel: str, fn, dev: torch.device, *args: int) -> None:
     """Call launch function `fn` with `args` and the raw handle of
     PyTorch's current stream on `dev`, switching device only when `dev`
     is not the current one; raise on a launch error."""
@@ -197,8 +198,8 @@ def quorum_commit_vote_ref(match, voter, voter_out, in_joint, votes):
             quorum_vote_ref(votes, voter, voter_out, in_joint))
 
 
-def _quorum_launch(mode, match, voter, voter_out, in_joint, votes,
-                   tallies=1):
+def _quorum_launch(mode: int, match, voter, voter_out, in_joint, votes,
+                   tallies: int = 1):
     """Launch the quorum kernel for the halves that `mode` asks for, over
     N*tallies rows of match/votes against N rows of masks; returns
     (commit or None, vres or None)."""

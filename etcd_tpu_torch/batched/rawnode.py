@@ -76,6 +76,7 @@ from .applyplane import (
     init_plane,
     parse_payload,
 )
+from .compile_cache import enable_compile_cache
 from .graph import RoundGraphs, device_work, storages, write_back
 from .msgblock import (
     MsgBlock,
@@ -282,6 +283,8 @@ class BatchedRawNode:
             _refuse("BatchedRawNode(mesh=...)", "mesh")
         self.device = dev = resolve_device(device)
         self._cuda = dev.type == "cuda"
+        # The native builds' directory (batched/compile_cache.py).
+        enable_compile_cache()
         with device_work():
             self._build(cfg, dev, groups, slots, restore, start_index)
 
@@ -332,7 +335,7 @@ class BatchedRawNode:
         self._owned = storages(tuple(self.state) + tuple(self._inbox)
                                + self._ctl)
         # On CUDA, the round is one graph (graph.RoundGraphs).
-        self._graphs = RoundGraphs()
+        self._graphs = RoundGraphs(f"rawnode|{cfg}")
         self._fleet_pos = 3 + int(cfg.telemetry)
 
         # Host mirrors (updated in advance()).

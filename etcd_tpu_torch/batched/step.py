@@ -41,7 +41,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ..analysis.sentinels import note_compile_key
 from ..obs.fleet import FLEET_BUCKETS, FleetLayout
 from .kernels import (
     VOTE_LOST,
@@ -1426,6 +1428,21 @@ def _emit(cfg: BatchedConfig, ids: Ids, st: BatchedState):
 # -----------------------------------------------------------------------------
 
 
+# The segments of one round, in execution order, with their labels
+# (the JAX package's named_scope strings): the eager round opens a
+# torch.profiler.record_function range of each label around its phase,
+# and tools/phaseprobe.py times each segment under the same names.
+ROUND_PHASE_SCOPES = (
+    ("deliver", "raft_deliver"),
+    ("tick", "raft_tick"),
+    ("control", "raft_control"),
+    ("propose", "raft_propose"),
+    ("emit", "raft_emit"),
+    ("route", "raft_route"),
+)
+_SCOPE = dict(ROUND_PHASE_SCOPES)
+
+
 def route_view(cfg: BatchedConfig, x: torch.Tensor) -> torch.Tensor:
     """One outbox field [N, R, ...] routed, as a view [G, R, R, ...] of
     it indexed [group, target, sender, ...] (route() copies it into the
@@ -1634,6 +1651,9 @@ with cfg.fleet_summary.)
     across topologies). The round runs on `device` (default: the GPU),
     or on the device of a tensor `iids`."""
     cfg = cfg.validate().resolved().apply_plane_key()
+    # Recompile sentinel: one key per distinct round program built this
+    # session (analysis.sentinels).
+    note_compile_key("round_step", f"{cfg}|aux={int(with_aux)}")
     if isinstance(iids, torch.Tensor) and device is None:
         dev = iids.device
     else:
@@ -1670,13 +1690,20 @@ with cfg.fleet_summary.)
         # Partitioned instances neither receive nor send this round.
         iso = isolate.view(n, 1, 1)
         inbox = inbox._replace(valid=inbox.valid & ~iso)
-        st, req_resps = _deliver_all(cfg, ids, st, inbox, senders)
-        st = _tick(cfg, ids, st, tick_mask, campaign_mask)
+        # Each phase in a profiler range of its label (host-side: a
+        # captured graph holds only the kernels).
+        with record_function(_SCOPE["deliver"]):
+            st, req_resps = _deliver_all(cfg, ids, st, inbox, senders)
+        with record_function(_SCOPE["tick"]):
+            st = _tick(cfg, ids, st, tick_mask, campaign_mask)
         read_snap = (st.read_seq, st.read_index, st.read_ready)
-        st = _control(cfg, ids, st, transfer_to, read_req)
+        with record_function(_SCOPE["control"]):
+            st = _control(cfg, ids, st, transfer_to, read_req)
         last_tick = st.last
-        st = _propose(cfg, ids, st, propose_n)
-        st, requests = _emit(cfg, ids, st)
+        with record_function(_SCOPE["propose"]):
+            st = _propose(cfg, ids, st, propose_n)
+        with record_function(_SCOPE["emit"]):
+            st, requests = _emit(cfg, ids, st)
         # Responses to requests from sender s land in out[s, k +
         # NUM_REQ_KINDS]; they route back by the same transpose.
         out = _stack_lanes(requests + req_resps)

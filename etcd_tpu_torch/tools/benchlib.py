@@ -12,10 +12,11 @@ with the device it ran on.
 from __future__ import annotations
 
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..analysis.sentinels import CompileBudget
 from ..batched import BatchedConfig, MultiRaftEngine
 
 
@@ -69,13 +70,20 @@ def make_bench_engine(groups: int, telemetry: bool = False,
 
 
 def measure_rate(eng, props, rounds_per_call: int, calls: int,
-                 pipelined: bool = False) -> float:
+                 pipelined: bool = False,
+                 budget: Optional[CompileBudget] = None) -> float:
     """Steady-state group-rounds/s after one warm-up call (which
     captures the round's graph on CUDA): `calls` run_rounds calls of
     `rounds_per_call` rounds each, or one run_rounds_pipelined pass of
-    as many rounds with chunk == rounds_per_call."""
+    as many rounds with chunk == rounds_per_call. The measured calls
+    are held to zero new captures, in `budget` when the caller gives one
+    (its report() then counts them)."""
     eng.run_rounds(rounds_per_call, tick=True, propose_n=props)  # warmup
     _sync(eng)
+    # The measured loop replays what the warm-up captured: a capture
+    # inside it would be timed as a round (analysis.sentinels).
+    budget = (CompileBudget(0) if budget is None else budget).track(
+        "measure_rate", eng)
     t0 = time.perf_counter()
     if pipelined:
         eng.run_rounds_pipelined(rounds_per_call * calls,
@@ -86,6 +94,7 @@ def measure_rate(eng, props, rounds_per_call: int, calls: int,
             eng.run_rounds(rounds_per_call, tick=True, propose_n=props)
     _sync(eng)
     dt = time.perf_counter() - t0
+    budget.check()
     return eng.cfg.num_groups * rounds_per_call * calls / dt
 
 
@@ -106,6 +115,7 @@ def measure_commit_p50(eng, max_rounds: int = 10) -> Tuple[float, int]:
     t0 = time.perf_counter()
     eng.run_rounds(1, tick=False, propose_n=one)
     rounds = 1
+    # jitlint: waive(sync-in-loop) -- the sync IS the measurement: commit p50 is wall-clock from propose to observed quorum commit, one read per round by definition
     while eng.commits()[:, 0].min() <= base and rounds < max_rounds:
         eng.run_rounds(1, tick=False)
         rounds += 1

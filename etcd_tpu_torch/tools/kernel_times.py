@@ -36,6 +36,7 @@ import torch
 
 from ..batched import hopper_kernels as hk_plain
 from ..batched import kernels as k_plain
+from ..batched.step import ROUND_PHASE_SCOPES
 from .bench import device_label
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -57,29 +58,40 @@ def _device_us(event) -> float:
     return getattr(event, "self_cuda_time_total", 0) if t is None else t
 
 
+# The ranges the eager round opens (step.ROUND_PHASE_SCOPES): on the
+# device timeline each is a user annotation spanning its kernels and the
+# gaps between them, not work of its own.
+PHASE_LABELS = frozenset(label for _n, label in ROUND_PHASE_SCOPES)
+
+
 def kernel_events(prof):
     """The profiler's per-name averages of work that ran on the card."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and _device_us(e) > 0]
+            and _device_us(e) > 0 and e.key not in PHASE_LABELS]
 
 
 def profile_kernels(fn, iters: int = 1, attempts: int = 3):
     """kernel_events of `iters` calls of fn() (CUPTI through
     torch.profiler, CUDA activity only). A session that records no
-    device work is taken again, up to `attempts` times: the first
-    session of a process has been seen to come back empty."""
+    device work, or records some kernel a number of times that is not a
+    multiple of `iters` (every call launches the same kernels, so some
+    records were dropped), is taken again, up to `attempts` times: the
+    first session of a process has been seen to come back empty, and
+    sessions late in a long process short."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
+            # jitlint: waive(sync-in-loop) -- the fence that closes a profiler session: one a session, the measurement itself
             torch.cuda.synchronize()
         events = kernel_events(prof)
-        if events:
+        if events and all(e.count % iters == 0 for e in events):
             return events
-    raise RuntimeError("the profiler recorded no device time")
+    raise RuntimeError("the profiler recorded no device time, or not "
+                       f"every call's kernels, in {attempts} sessions")
 
 
 @functools.cache
@@ -131,6 +143,7 @@ def stream_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 5):
         for _ in range(iters):
             fn()
         t1.record()
+        # jitlint: waive(sync-in-loop) -- the timing fence of one repeat: the measurement itself
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1) / iters)
     return statistics.median(times)
@@ -142,6 +155,38 @@ def bound_ms(nbytes: float, ops: float) -> "tuple[float, str]":
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def form_cost(key: str, args) -> "tuple[float, float]":
+    """The bytes and operations of one call of form `key` (as
+    hopper_kernels.FORM_LAUNCHES counts it: "quorum_commit_vote commit
+    ...", "... vote ...", "... both ...", "term_at_batch ...") on
+    `args`, its wrapper's arguments (hopper_kernels.quorum_commit,
+    quorum_vote, quorum_commit_vote, term_at_batch). Bytes: each input
+    read once (for the ring, the distinct slots these queries read
+    inside it), each output written once. Operations: B1's O(R^2)
+    support loop a half for commit, 4R compares a half for a vote
+    tally, on every row, twice on a joint row; B2's 8 a query."""
+    if key.startswith("term_at_batch"):
+        log_term, snap_index, _snap_term, last, idx = args[:5]
+        n, w = log_term.shape
+        flat = idx.reshape(n, -1)
+        ring = ((flat > snap_index.unsqueeze(-1))
+                & (flat <= last.unsqueeze(-1)))
+        slots = torch.where(flat >= 0, flat % w, 0).long() + w * torch.arange(
+            n, device=flat.device).unsqueeze(-1)
+        reads = torch.unique(slots[ring]).numel()
+        return 4 * (3 * n + 2 * flat.numel() + reads), 8 * flat.numel()
+    vals, voter, _voter_out, in_joint = args[:4]
+    n, r = voter.shape
+    rows = vals.numel() // r  # B tallies an instance
+    joint = in_joint.float().mean().item()
+    kind = key.split()[1]
+    support = r + r * (2 * r + 2)  # the O(R^2) support loop of a half
+    per_row = {"commit": support, "vote": 4 * r, "both": support + 4 * r}
+    tallies = 2 if kind == "both" else 1  # commit's inputs and votes
+    return (tallies * rows * (4 * r + 4) + n * (2 * r + 1),
+            rows * (1 + joint) * per_row[kind])
 
 
 # -- inputs and forms --------------------------------------------------------------
@@ -209,35 +254,28 @@ def main_path_forms(dev, k=k_plain, hk=hk_plain, n: int = 0,
     masks = (voter, voter_out, in_joint)
     prefix = torch.rand((n, R, R), generator=gen, device=dev) < 0.5
     tally = torch.where(prefix, 1, -1).to(torch.int32)
-    joint = in_joint.float().mean().item()
-    support_ops = R + R * (2 * R + 2)  # the O(R^2) support loop of a half
-    mask_bytes = 2 * R + 1             # voter, voter_out, in_joint
     q = "quorum_commit_vote"
     forms = [
         {"key": f"{q} commit R={R} B=1",
          "call": lambda: k.joint_committed(match, *masks),
          "plain": lambda: hk_plain.quorum_commit_ref(match, *masks),
-         "bytes": n * (4 * R + mask_bytes + 4),
-         "ops": n * (1 + joint) * support_ops},
+         "args": (match, *masks)},
         {"key": f"{q} vote R={R} B=1",
          "call": lambda: k.joint_vote_result(votes, *masks),
          "plain": lambda: hk_plain.quorum_vote_ref(votes, *masks),
-         "bytes": n * (4 * R + mask_bytes + 4),
-         "ops": n * (1 + joint) * 4 * R},
+         "args": (votes, *masks)},
         {"key": f"{q} both R={R} B=1",
          "call": lambda: hk.quorum_commit_vote(match, *masks, votes),
          "plain": lambda: hk_plain.quorum_commit_vote_ref(match, *masks,
                                                           votes),
-         "bytes": n * (8 * R + mask_bytes + 8),
-         "ops": n * (1 + joint) * (support_ops + 4 * R)},
+         "args": (match, *masks, votes)},
         # The heartbeat-response lane's ReadIndex ack prefixes: R
         # tallies per instance (votes 1 or -1).
         {"key": f"{q} vote R={R} B={R}",
          "call": lambda: k.joint_vote_result(tally, *masks),
          "plain": lambda: hk_plain.quorum_vote_ref(
              tally.view(-1, R), *masks, R).view(n, R),
-         "bytes": n * (4 * R * R + mask_bytes + 4 * R),
-         "ops": n * R * (1 + joint) * 4 * R},
+         "args": (tally.view(-1, R), *masks, R)},
     ]
     # The round's index widths: [N] (K=1), _emit's [N, R] prev indexes,
     # _handle_append's [N, E] entry indexes and _emit's [N, R, E]
@@ -248,19 +286,14 @@ def main_path_forms(dev, k=k_plain, hk=hk_plain, n: int = 0,
         if width == R * e:
             idx = idx.view(n, R, e)
         args = (log_term, snap_index, snap_term, last, idx)
-        flat = idx.view(n, -1)
-        ring = ((flat > snap_index.unsqueeze(-1))
-                & (flat <= last.unsqueeze(-1)))
-        # Distinct ring slots this data reads (the bytes it must move).
-        slots = torch.where(flat >= 0, flat % w, 0).long() + w * torch.arange(
-            n, device=dev).unsqueeze(-1)
-        ring_reads = torch.unique(slots[ring]).numel()
         forms.append({
             "key": f"term_at_batch K={width} W={w}",
             "call": lambda a=args: k.term_at(*a),
             "plain": lambda a=args: hk_plain.term_at_batch_ref(*a),
-            "bytes": 4 * (3 * n + 2 * flat.numel() + ring_reads),
-            "ops": 8 * flat.numel()})
+            "args": args})
+    for form in forms:
+        # jitlint: waive(sync-in-loop) -- set-up: a bound counts what the seeded inputs hold, once a form, before any timing
+        form["bytes"], form["ops"] = form_cost(form["key"], form.pop("args"))
     return forms
 
 
@@ -372,49 +405,46 @@ def node_path_forms(dev, hk=hk_plain) -> list:
     """Every form a BatchedNode round gives the two kernels, at N = 1:
     like main_path_forms, with `cases` (every seeded case, each to be
     held equal to the plain form) and `call`/`plain` on the timed case
-    (B1: the joint config; B2: the long log's last case), whose bytes
-    and operations the bound counts. B1 at R = 3 (a three-member
+    (B1: the second, the joint config at R = 3; B2: the long log's last
+    case), whose bytes and operations the bound counts (form_cost). B1 at R = 3 (a three-member
     cluster), R = 4 (booted members' three peers and spare slot) and
     R = 2 (a booted solo member and its spare slot)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q = "quorum_commit_vote"
     forms = []
+
+    def add(key, cases, timed):
+        """A form over `cases` (run, plain, args) whose `timed` one the
+        bound counts."""
+        run, plain, args = cases[timed]
+        nbytes, ops = form_cost(key, args)
+        forms.append({"key": key, "n": 1,
+                      "cases": [(c[0], c[1]) for c in cases],
+                      "call": run, "plain": plain,
+                      "bytes": nbytes, "ops": ops})
+
     for r in NODE_RS:
-        support_ops = r + r * (2 * r + 2)  # the O(R^2) support loop of a half
-        io_bytes = 2 * r + 1 + 4 * r + 4   # masks, one tally row, its result
-        for key, tallies, ops, run, plain in (
-                (f"{q} commit R={r} B=1", 1, 2 * support_ops,
-                 lambda c: hk.quorum_commit(*c[:4]),
-                 lambda c: hk_plain.quorum_commit_ref(*c[:4])),
-                (f"{q} vote R={r} B=1", 1, 2 * 4 * r,
-                 lambda c: hk.quorum_vote(c[4], *c[1:4]),
-                 lambda c: hk_plain.quorum_vote_ref(c[4], *c[1:4])),
-                (f"{q} vote R={r} B={r}", r, r * 2 * 4 * r,
-                 lambda c, r=r: hk.quorum_vote(c[4], *c[1:4], r),
-                 lambda c, r=r: hk_plain.quorum_vote_ref(c[4], *c[1:4], r))):
-            cases = [(lambda c=c, f=run: f(c), lambda c=c, f=plain: f(c))
-                     for c in node_quorum_cases(gen, dev, tallies, r)]
-            forms.append({"key": key, "n": 1, "cases": cases,
-                          "call": cases[1][0], "plain": cases[1][1],
-                          "bytes": io_bytes + (tallies - 1) * (4 * r + 4),
-                          "ops": ops})
+        for key, tallies, args_of, run, plain in (
+                (f"{q} commit R={r} B=1", 1, lambda c: c[:4],
+                 hk.quorum_commit, hk_plain.quorum_commit_ref),
+                (f"{q} vote R={r} B=1", 1, lambda c: (c[4], *c[1:4]),
+                 hk.quorum_vote, hk_plain.quorum_vote_ref),
+                (f"{q} vote R={r} B={r}", r,
+                 lambda c, r=r: (c[4], *c[1:4], r),
+                 hk.quorum_vote, hk_plain.quorum_vote_ref)):
+            cases = [(lambda a=a, f=run: f(*a), lambda a=a, f=plain: f(*a), a)
+                     for a in map(args_of,
+                                  node_quorum_cases(gen, dev, tallies, r))]
+            # jitlint: waive(sync-in-loop) -- set-up: a bound counts what the timed case holds, once a form, before any timing
+            add(key, cases, 1)
     for w in NODE_WINDOWS:
         for k in sorted({1, NODE_E} | set(NODE_RS)
                         | {r * NODE_E for r in NODE_RS}):
-            args = node_term_cases(w, k, gen, dev)
             cases = [(lambda a=a: hk.term_at_batch(*a),
-                      lambda a=a: hk_plain.term_at_batch_ref(*a))
-                     for a in args]
-            _, si, _, last, idx = args[-1]
-            flat = idx.view(-1)
-            reads = torch.unique(flat[(flat > si) & (flat <= last)] % w)
-            forms.append({"key": f"term_at_batch K={k} W={w}", "n": 1,
-                          "cases": cases, "call": cases[-1][0],
-                          "plain": cases[-1][1],
-                          # the bounds and queries, the result, and the
-                          # distinct ring slots the queries read
-                          "bytes": 4 * (3 + 2 * k + reads.numel()),
-                          "ops": 8 * k})
+                      lambda a=a: hk_plain.term_at_batch_ref(*a), a)
+                     for a in node_term_cases(w, k, gen, dev)]
+            # jitlint: waive(sync-in-loop) -- set-up: a bound counts what the timed case holds, once a form, before any timing
+            add(f"term_at_batch K={k} W={w}", cases, -1)
     return forms
 
 
@@ -461,6 +491,7 @@ def run_one(tree: str) -> dict:
             got, want = (got,), (want,)
         if not all(map(torch.equal, got, want)):
             raise AssertionError(f"{tree}: {form['key']} != plain form")
+        # jitlint: waive(sync-in-loop) -- each form is timed on its own; its fences are the measurement
         times[form["key"]] = time_form(form, plain=False)
     return {"tree": tree, "forms": times}
 

@@ -130,6 +130,7 @@ class Pair:
 
     def run(self, schedule: List[dict]) -> "Pair":
         for step in schedule:
+            # jitlint: waive(sync-in-loop) -- one round a step, and its compare reads the state in one bulk gather a round
             self.step(**step)
         return self
 
@@ -152,18 +153,22 @@ class Pair:
                 f"{i // R} slot {i % R}) device {got[i]} vs shadow "
                 f"{want[i]}; {len(bad)} instances differ")
 
-    def device_log(self, inst: int) -> List[Tuple[int, int]]:
+    def device_logs(self) -> List[List[Tuple[int, int]]]:
+        """Every instance's log as (index, term) pairs, from one bulk
+        read of the ring and its bounds."""
         st = self.eng.state
-        si, last = int(st.snap_index[inst]), int(st.last[inst])
-        ring = st.log_term[inst].cpu().numpy()
-        return [(i, int(ring[i % self.cfg.window]))
-                for i in range(si + 1, last + 1)]
+        si, last, ring = (x.cpu().numpy() for x in
+                          (st.snap_index, st.last, st.log_term))
+        w = self.cfg.window
+        return [[(i, int(ring[inst, i % w]))
+                 for i in range(int(si[inst]) + 1, int(last[inst]) + 1)]
+                for inst in range(self.cfg.num_instances)]
 
     def compare_logs(self) -> None:
         """Every instance's log terms equal its replica's."""
-        for inst in range(self.cfg.num_instances):
+        for inst, got in enumerate(self.device_logs()):
             want = self.shadows[inst // R].log_terms(inst % R)
-            if self.device_log(inst) != want:
+            if got != want:
                 raise AssertionError(
                     f"{self.cfg.deliver_shape}: log of instance {inst} "
                     "differs from its shadow replica's")
@@ -264,6 +269,7 @@ def soak(shape: str, seed: int, device=None) -> Pair:
         if rng.random() < 0.05 and not iso_until:
             victim = rng.randrange(n)
             iso_until[victim] = rnd + rng.randint(2, 6)
+        # jitlint: waive(sync-in-loop) -- one bulk read of the roles a round, to choose the round's proposers
         roles = pair.eng.state.role.cpu().numpy()
         props = {}
         for g in range(groups):

@@ -1021,3 +1021,106 @@ def test_interaction_harness_on_the_card(dev):
         for env in envs:
             env.close()
             assert env.nodes == []
+
+
+# -- the sentinels on the card (analysis/sentinels.py) ---------------------------
+
+
+def test_one_capture_key_per_tick_value(dev):
+    """Each tick value's graph is noted once under "round_capture" with
+    the owner's kind and config; replays note nothing more."""
+    from etcd_tpu_torch.analysis import sentinels
+
+    cfg = bench_config(24)
+    eng = MultiRaftEngine(cfg, device=dev)
+    before = sentinels.compile_keys("round_capture")
+    for tick in (True, True, False, True, False):
+        eng.run_rounds(3, tick=tick)
+    new = sentinels.compile_keys("round_capture") - before
+    assert new == {f"engine|{eng.cfg}|True", f"engine|{eng.cfg}|False"}
+    assert sentinels.compile_keys("round_step") >= {
+        f"{eng.cfg.apply_plane_key()}|aux=0"}
+
+
+def test_capture_budget_fires_on_a_seeded_capture(dev):
+    """A warmed loop makes no capture; a tick value the loop had not
+    used captures once, and a zero budget catches exactly that."""
+    from etcd_tpu_torch.analysis import sentinels
+
+    eng = MultiRaftEngine(bench_config(8), device=dev)
+    eng.run_rounds(2, tick=True)
+    budget = sentinels.CompileBudget(0).track("engine", eng)
+    eng.run_rounds(4, tick=True)
+    assert budget.check() == 0
+    eng.run_rounds(1, tick=False)  # seeded: a new graph key
+    with pytest.raises(sentinels.RecompileBudgetExceeded):
+        budget.check()
+    assert budget.misses() == 1 and budget.report() == {"engine": 1}
+
+
+def test_warm_replays_under_disallow_raise_nothing(dev, monkeypatch):
+    """With ETCD_TPU_TRANSFER_GUARD=disallow the engine's warm replays,
+    its pipelined loop, its warm eager rounds and a rawnode's warm
+    rounds run under the sync guard and raise nothing; the debug mode
+    is back to off afterwards."""
+    from etcd_tpu_torch.batched.rawnode import BatchedRawNode
+
+    monkeypatch.setenv("ETCD_TPU_TRANSFER_GUARD", "disallow")
+    cfg = chip_smoke.parity_configs(64, planes=True)["prevote_cq"]
+    eng = MultiRaftEngine(cfg, device=dev)
+    props = torch.ones(cfg.num_instances, dtype=torch.int32, device=dev)
+    eng.run_rounds(2, propose_n=props)  # eager and capture unguarded
+    eng.step_round(tick=True)  # after a round: guarded
+    eng.run_rounds(6, propose_n=props)
+    eng.run_rounds_pipelined(10, chunk=5, depth=1, propose_n=props)
+    eng.step_round(tick=True, propose_n=props)
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    members = {m: BatchedRawNode(bench_config(16), groups=np.arange(16),
+                                 slots=np.full(16, m - 1), device=dev)
+               for m in (1, 2, 3)}
+    for _ in pump(members, bench_config(16), rounds=6):
+        pass
+    assert all(rn.captures == 1 for rn in members.values())
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_seeded_sync_in_a_warm_eager_step_raises(dev, monkeypatch):
+    """A `.item()` smuggled into a warm eager round is an error under
+    disallow; the engine works on after it and the mode is restored."""
+    monkeypatch.setenv("ETCD_TPU_TRANSFER_GUARD", "disallow")
+    eng = MultiRaftEngine(bench_config(8), device=dev)
+    eng.step_round(tick=True)  # warm
+    orig = eng._step
+
+    def poisoned(st, *args):
+        st.term.sum().item()  # a host sync inside the guarded round
+        return orig(st, *args)
+
+    eng._step = poisoned
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            eng.step_round(tick=True)
+    finally:
+        eng._step = orig
+    assert torch.cuda.get_sync_debug_mode() == 0
+    eng.step_round(tick=True)
+    monkeypatch.delenv("ETCD_TPU_TRANSFER_GUARD")
+    eng._step = poisoned  # with the guard off the same round runs
+    eng.step_round(tick=True)
+
+
+def test_sweep_phase_at_a_small_size(dev, monkeypatch, tmp_path):
+    """chip_smoke's sweep phase with every bench_sweep config at a small
+    G, the frontier at two points, the batch and the probe at G=256."""
+    from etcd_tpu_torch.tools import bench_sweep, frontier_sweep
+
+    monkeypatch.setattr(bench_sweep, "CONFIGS", {
+        c: s._replace(groups=g) for (c, s), g in zip(
+            sorted(bench_sweep.CONFIGS.items()), (64, 128, 256, 1024))})
+    monkeypatch.setattr(frontier_sweep, "GPU_GROUPS", [256, 512])
+    monkeypatch.setattr(chip_smoke, "MAIN_GROUPS", 256)
+    paths = chip_smoke.run_sweep(dev, str(tmp_path))
+    assert sorted(paths) == ["sweep_2", "sweep_3", "sweep_4", "sweep_5"]
+    assert any(" R=5 " in k for k in paths["sweep_3"]["forms"])
+    assert all(v > 0 for p in paths.values() for v in p["launches"].values())

@@ -154,7 +154,8 @@ def test_port_imports_no_jax():
     member-process harness; and the outer client surfaces: etcdctl, the
     grpc, http and tcp proxies, the client recipes, ``pb/`` and the
     ``pkg`` leaves traceutil, notify, mock and proxy; the interaction
-    harness and the lock-order recorder),
+    harness and the lock-order recorder; the lint, the sentinels, the
+    build-cache record and the sweep tools),
     building and loading the walog library,
     and importing chip_smoke load neither jax nor any module of the JAX
     package."""
@@ -223,7 +224,14 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.rafttest.datadriven",
           "etcd_tpu_torch.rafttest.interaction",
           "etcd_tpu_torch.rafttest.batched_env",
-          "etcd_tpu_torch.analysis", "etcd_tpu_torch.analysis.lockorder"):
+          "etcd_tpu_torch.analysis", "etcd_tpu_torch.analysis.lockorder",
+          "etcd_tpu_torch.analysis.jitlint",
+          "etcd_tpu_torch.analysis.sentinels",
+          "etcd_tpu_torch.batched.compile_cache",
+          "etcd_tpu_torch.tools.bench_sweep",
+          "etcd_tpu_torch.tools.frontier_sweep",
+          "etcd_tpu_torch.tools.gpu_batch",
+          "etcd_tpu_torch.tools.phaseprobe"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "etcd_tpu" or m.startswith("etcd_tpu."))

@@ -77,12 +77,18 @@ def test_every_module_names_its_reference(rel):
 
 def test_analysis_exports_only_what_is_ported():
     """The port's analysis package exports the lock-order recorder and
-    its violation, and names the modules still queued."""
+    its violation, the lint's and the sentinels' public names (those of
+    etcd_tpu/analysis/__init__.py) and its three modules, and names
+    each plane in its docstring."""
     import etcd_tpu_torch.analysis as analysis
 
     assert analysis.LockOrderRecorder.__module__ == (
         "etcd_tpu_torch.analysis.lockorder")
     assert {n for n in vars(analysis) if not n.startswith("_")} == {
-        "LockOrderRecorder", "LockOrderViolation", "lockorder"}
-    for queued in ("jitlint", "sentinels", "compile_cache", "ROADMAP"):
-        assert queued in analysis.__doc__, queued
+        "LockOrderRecorder", "LockOrderViolation", "lockorder",
+        "Finding", "RULES", "lint_file", "lint_paths", "lint_source",
+        "jitlint", "CompileBudget", "RecompileBudgetExceeded",
+        "distinct_shapes", "note_compile_key", "reset_compile_tracking",
+        "round_guard", "transfer_guard_mode", "sentinels"}
+    for plane in ("jitlint", "sentinels", "lockorder"):
+        assert plane in analysis.__doc__, plane
