@@ -5072,11 +5072,87 @@ def run_boot(dev, puts: int = BOOT_PUTS, ranges: int = BOOT_RANGES,
 
 # Cuts of the tools' own depth for chip_smoke's time (each keeps every
 # schedule feature; the groups are the tools' accelerator sizes): the
-# frontier's calls a point 8 -> 2, the batch's calls 8 -> 4 and the
-# phase probe's replays a segment 32 -> 16.
+# frontier's calls a point 8 -> 2 and the batch's calls 8 -> 4.
 SWEEP_FRONTIER_CALLS = 1
 SWEEP_BATCH_CALLS = 2
-SWEEP_PROBE_ROUNDS = 16
+ROUNDTRACE_ROUNDS = 64  # rounds of the round tracer's stretch
+# The largest median distance (us) allowed between a traced round's end
+# mark, on the host's clock, and a CUDA event recorded right after it.
+ROUNDTRACE_EVENT_US = 50
+
+
+def run_roundtrace(dev, groups: int, rounds: int = ROUNDTRACE_ROUNDS) -> dict:
+    """The round tracer (batched/roundtrace.py) over the bench engine at
+    `groups` groups, 2 proposals a leader a round, beside an untraced
+    twin: both graph variants captured in set-up, then a stretch of
+    `rounds` traced rounds held to zero new captures, a CUDA event
+    recorded after each traced call. Raises unless the twin's state
+    equals the traced engine's, every round of the stretch was kept and
+    every one of its marks written, the marks rise within each round,
+    the rounds' start marks rise strictly, and (on CUDA) the end marks
+    on the host's clock lie within ROUNDTRACE_EVENT_US of the events
+    (median). Returns the stretch's summary."""
+    from etcd_tpu_torch.analysis.sentinels import CompileBudget
+    from etcd_tpu_torch.batched import MultiRaftEngine
+    from etcd_tpu_torch.tools.benchlib import bench_config
+
+    cfg = bench_config(groups)
+    plain, eng = (MultiRaftEngine(cfg, device=dev, round_trace=t)
+                  for t in (False, True))
+    props = torch.zeros((cfg.num_instances,), dtype=torch.int32, device=dev)
+    props[::R] = 2
+    for e in (plain, eng):
+        e.campaign(range(0, cfg.num_instances, R))
+        e.run_rounds(4, tick=False)
+        if not (e.leaders() == 0).all():
+            raise AssertionError("roundtrace: the election failed")
+        e.run_rounds(2, tick=True, propose_n=props)
+        e.run_rounds(2, tick=False, propose_n=props)
+    budget = CompileBudget(0).track("roundtrace", eng)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        anchor = torch.cuda.Event(enable_timing=True)
+        anchor.record()
+        anchor_ns = time.perf_counter_ns()
+    events = []
+    rt = eng.round_trace
+    rt.start()
+    for _ in range(rounds):
+        eng.run_rounds(1, tick=False, propose_n=props)
+        if cuda:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        plain.run_rounds(1, tick=False, propose_n=props)
+    rt.stop()
+    assert_engines_equal(plain, eng, "roundtrace: traced against untraced")
+    stretch = rt.collect()
+    marks = stretch.marks
+    if stretch.rounds.size != rounds or stretch.rounds_dropped:
+        raise AssertionError(f"roundtrace: {stretch.rounds.size} rounds "
+                             f"kept of {rounds}")
+    if not (marks > 0).all():
+        raise AssertionError("roundtrace: a mark of the stretch is unwritten")
+    if not (np.diff(marks, axis=1) >= 0).all():
+        raise AssertionError("roundtrace: a mark precedes the one before it")
+    if not (np.diff(marks[:, 0]) > 0).all():
+        raise AssertionError("roundtrace: the rounds' start marks do not rise")
+    summary = stretch.summary()
+    if cuda:
+        host = np.array([anchor_ns + anchor.elapsed_time(e) * 1e6
+                         for e in events])
+        diff_us = (host - stretch.host_marks()[:, -1]) / 1e3
+        median = float(np.median(diff_us))
+        summary["event_minus_end_mark_us"] = {
+            "median": median, "min": float(diff_us.min()),
+            "max": float(diff_us.max())}
+        if abs(median) >= ROUNDTRACE_EVENT_US:
+            raise AssertionError(
+                f"roundtrace: end marks lie {median:.1f} us from the CUDA "
+                f"events after the rounds (median)")
+    summary["captures_after_warmup"] = budget.check()
+    summary["captures"] = eng.captures
+    return summary
 
 
 def time_round_forms(eng, props) -> dict:
@@ -5116,15 +5192,16 @@ def run_sweep(dev, scratch: str) -> dict:
     of one more eager round held against its plain version on that
     round's inputs, those of #3 (R = 5) and #5 (G = 1,048,576) timed a
     call too; frontier_sweep with its pipeline gate and its cold/warm
-    start probe; gpu_batch's sections (a)-(e); phaseprobe's table.
+    start probe; gpu_batch's sections (a)-(e); the round tracer's
+    segment table (run_roundtrace).
     Everything runs under ETCD_TPU_TRANSFER_GUARD=disallow (the warm
     replays and eager rounds under the sync guard) and every measured
     loop is held to zero new captures after its warm-up: the closing
     line sums what their budgets counted. Returns path -> launches."""
     from etcd_tpu_torch.analysis import sentinels
     from etcd_tpu_torch.batched import hopper_kernels as hk
-    from etcd_tpu_torch.tools import (bench_sweep, frontier_sweep, gpu_batch,
-                                      phaseprobe)
+    from etcd_tpu_torch.batched import roundtrace
+    from etcd_tpu_torch.tools import bench_sweep, frontier_sweep, gpu_batch
 
     cuda = dev.type == "cuda"
     paths = {}
@@ -5190,13 +5267,11 @@ def run_sweep(dev, scratch: str) -> dict:
             e_profile={k: v for k, v in batch["e_profile"].items()
                        if k != "trace"})
         t0 = time.perf_counter()
-        probe = phaseprobe.probe(MAIN_GROUPS if cuda else 64,
-                                 rounds=SWEEP_PROBE_ROUNDS, device=dev)
-        print(phaseprobe.table(probe), flush=True)
-        log("sweep", tool="phaseprobe", seconds=time.perf_counter() - t0,
-            segments=probe["segments"],
-            segments_sum_ms=probe["segments_sum_ms"],
-            full_round_graphed_ms=probe["full_round_graphed_ms"])
+        trace = run_roundtrace(dev, MAIN_GROUPS if cuda else 64)
+        after_warmup["roundtrace"] = trace["captures_after_warmup"]
+        print(roundtrace.table(trace), flush=True)
+        log("sweep", tool="roundtrace", seconds=time.perf_counter() - t0,
+            **trace)
     finally:
         if old_guard is None:
             os.environ.pop("ETCD_TPU_TRANSFER_GUARD", None)

@@ -17,6 +17,11 @@ round: the counterpart of the JAX engine's ``lax.scan`` over donated
 buffers. As with donation there, a field of ``engine.state`` read
 before a round holds that round's result after it. On the CPU the loop
 is eager.
+
+An engine built with ``round_trace=True`` carries a round tracer
+(``roundtrace.py``, ``engine.round_trace``): while one of its stretches
+is on, the closed loop replays a traced variant of each round graph and
+stamps its own calls.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from torch.profiler import record_function
 from ..analysis.sentinels import note_compile_key, round_guard
 from ..obs.fleet import FleetLayout
 from .compile_cache import enable_compile_cache
-from .graph import RoundGraphs, storages, write_back
+from .graph import RoundGraphs, device_work, storages, write_back
+from .roundtrace import TRACED, UNTRACED, RoundTracer
 from .state import LEADER, BatchedConfig, I32, init_state, resolve_device
 from .step import (NUM_KINDS, ROUND_PHASE_SCOPES, empty_msgs, make_step_round,
                    route_view)
@@ -50,7 +56,7 @@ ROUTE_SCOPE = dict(ROUND_PHASE_SCOPES)["route"]
 
 class MultiRaftEngine:
     def __init__(self, cfg: BatchedConfig, start_index: int = 0,
-                 device=None):
+                 device=None, round_trace: bool = False):
         # deliver_shape="auto" resolves here, so self.cfg names the
         # concrete shape the round runs.
         self.cfg = cfg = cfg.validate().resolved()
@@ -68,6 +74,14 @@ class MultiRaftEngine:
         self._zeros_i = torch.zeros((n,), dtype=I32, device=dev)
         # The proposal counts the captured round reads.
         self._props = torch.zeros((n,), dtype=I32, device=dev)
+        # The round tracer: on CUDA, building it builds and loads the
+        # mark library. An engine built for it reads the tick mask of its
+        # graphed rounds from a buffer (_replay).
+        self.round_trace = None
+        if round_trace:
+            self.round_trace = RoundTracer(cfg, self.state, self._props, dev)
+            self._ticks = torch.zeros((n,), dtype=torch.bool, device=dev)
+            self._tick_now = False
         # Step outputs past (state, outbox): telemetry, then the fleet
         # frame (the engine's step has no aux).
         self._tel_pos = 2
@@ -114,11 +128,16 @@ class MultiRaftEngine:
     # -- one round -----------------------------------------------------------
 
     def _round(self, ticks, campaign_mask, propose_n, isolate,
-               transfer_to=None, read_req=None) -> None:
+               transfer_to=None, read_req=None, rt=None) -> None:
         """Step, accumulate the planes and route, writing every result
-        into the engine's buffers."""
-        out = self._step(self.state, self.inbox, ticks, campaign_mask,
-                         propose_n, isolate, transfer_to, read_req)
+        into the engine's buffers; with a tracer `rt`, between the
+        round's marks and followed by its lifecycle record."""
+        if rt is not None:
+            rt.begin_round()
+        args = (self.state, self.inbox, ticks, campaign_mask, propose_n,
+                isolate, transfer_to, read_req)
+        out = self._step(*args) if rt is None else self._step(*args,
+                                                              mark=rt.mark)
         st, outbox = out[:2]
         if self.cfg.telemetry:
             frame = out[self._tel_pos]
@@ -128,7 +147,11 @@ class MultiRaftEngine:
             fv = out[self._fleet_pos]
             self._fleet_vec.copy_(torch.where(
                 self._fleet_summask, self._fleet_vec + fv, fv))
+        if rt is not None:
+            rt.mark("outbox")
         self._write_back(st, outbox)
+        if rt is not None:
+            rt.end_round()
 
     def _write_back(self, st, outbox) -> None:
         """Copy a round's state into the state buffers and route its
@@ -176,31 +199,83 @@ class MultiRaftEngine:
         else:
             self._props.copy_(propose_n)
 
-    def _replay(self, rounds: int, tick: bool) -> None:
+    def _replay(self, rounds: int, tick: bool, span=None) -> None:
         """`rounds` closed-loop rounds through the graph for `tick`, on
         the current stream, with no host sync (graph.RoundGraphs.run:
         the first use of a tick value runs one eager round, then
         captures; its replays run under the sync guard)."""
         if rounds <= 0:
             return
-        ticks = self._ones_b if tick else self._zeros_b
-        self._graphs.run(tick, lambda: self._round(
-            ticks, self._zeros_b, self._props, self._zeros_b), rounds,
-            tick=tick)
+        if self.round_trace is None:
+            ticks = self._ones_b if tick else self._zeros_b
+            self._graphs.run(tick, lambda: self._round(
+                ticks, self._zeros_b, self._props, self._zeros_b), rounds,
+                tick=tick)
+        else:
+            self._replay_traceable(rounds, tick, span)
         self.rounds += rounds
+
+    def _replay_traceable(self, rounds: int, tick: bool, span) -> None:
+        """_replay for an engine built for tracing. It holds two graphs,
+        one a variant (UNTRACED, TRACED), both captured in its first call
+        so that a stretch captures nothing, and each reads the tick mask
+        from a buffer: a graph a variant and a tick value would be four
+        graphs of the round, and with four (as with two copies of each
+        tick value's graph) replays on the card ran ~0.9 ms a round
+        slower in about half the processes. With a `span` (a traced
+        stretch is on), traced rounds one replay at a time, each stamped
+        into the span; on the CPU, eager ones."""
+        if tick != self._tick_now:
+            self._ticks.copy_(self._ones_b if tick else self._zeros_b)
+            self._tick_now = tick
+
+        def body(rt):
+            return lambda: self._round(self._ticks, self._zeros_b,
+                                       self._props, self._zeros_b, rt=rt)
+
+        rt = self.round_trace
+        cuda = self.device.type == "cuda"
+        if span is None:
+            self._graphs.run(UNTRACED, body(None), rounds, traced=False)
+            self._graphs.prepare(TRACED, body(rt), traced=True)
+            return
+        traced = body(rt)
+        with device_work():
+            span.lock_held()
+            for _ in range(rounds):
+                span.replay_begin()
+                if cuda:
+                    self._graphs.run(TRACED, traced, 1, traced=True)
+                else:
+                    traced()
+                span.replay_end()
+        if cuda:
+            self._graphs.prepare(UNTRACED, body(None), traced=False)
+
+    def _span(self):
+        """A span for this call while a traced stretch is on, else None."""
+        rt = self.round_trace
+        return None if rt is None else rt.open_span()
 
     def run_rounds(self, rounds: int, tick: bool = True,
                    propose_n: Optional[torch.Tensor] = None) -> None:
         """Closed-loop simulation of `rounds` rounds with no host sync:
         on CUDA, replays of the captured round; on the CPU, eager
         rounds."""
-        if self.device.type != "cuda":
+        span = self._span()
+        cuda = self.device.type == "cuda"
+        if not cuda and span is None:
             for _ in range(rounds):
                 self.step_round(tick=tick, propose_n=propose_n)
             return
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self.device) if cuda \
+                else contextlib.nullcontext():
             self._set_props(propose_n)
-            self._replay(rounds, tick)
+            if span is not None:
+                span.props_copied()
+            self._replay(rounds, tick, span)
+        if span is not None:
+            self.round_trace.close_span(span)
 
     def run_rounds_pipelined(self, rounds: int, chunk: int = 16,
                              depth: int = 2, tick: bool = True,
@@ -220,13 +295,16 @@ class MultiRaftEngine:
         if self.device.type != "cuda":
             self.run_rounds(rounds, tick=tick, propose_n=propose_n)
             return
+        span = self._span()
         with torch.cuda.device(self.device):
             self._set_props(propose_n)
+            if span is not None:
+                span.props_copied()
             fences: deque = deque()
             done = 0
             while done < rounds:
                 n = min(chunk, rounds - done)
-                self._replay(n, tick)
+                self._replay(n, tick, span)
                 done += n
                 fence = torch.cuda.Event()
                 fence.record()
@@ -234,6 +312,8 @@ class MultiRaftEngine:
                 while len(fences) > depth:
                     # jitlint: waive(sync-in-loop) -- the sync IS the pipelining contract: wait on the oldest chunk's fence to bound the chunks in flight at `depth`
                     fences.popleft().synchronize()
+        if span is not None:
+            self.round_trace.close_span(span)
 
     def _mask(self, instance_ids, value, like):
         idx = torch.as_tensor(np.asarray(instance_ids, np.int64),

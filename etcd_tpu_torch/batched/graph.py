@@ -138,3 +138,12 @@ class RoundGraphs:
                 for _ in range(times):
                     graph.replay()
             hk.add_launches(launches, times)
+
+    def prepare(self, key, body: Callable[[], None], **info) -> None:
+        """Capture `body` for `key` unless it has a graph, without running
+        it: for a body whose kernels are loaded already."""
+        if key in self._graphs:
+            return
+        with device_work():
+            if key not in self._graphs:
+                self._capture(key, body, info)

@@ -118,29 +118,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libquorum_ring_{digest}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    path = library_path()
+def build_library(source: Path, path: Path) -> ctypes.CDLL:
+    """Build CUDA `source` into the shared library `path` with
+    NVCC_FLAGS unless it is there, and load it."""
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.parent.mkdir(parents=True, exist_ok=True)
         # Build to a private name, then rename: a concurrent build
         # never loads a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                 capture_output=True, text=True, check=False)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed (rc={proc.returncode}) building "
-                    f"{SOURCE.name}:\n{proc.stderr}")
+                    f"{source.name}:\n{proc.stderr}")
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    lib = ctypes.CDLL(str(path))
+    return ctypes.CDLL(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    lib = build_library(SOURCE, library_path())
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.quorum_commit_vote_launch.argtypes = [
         i32, p, p, p, p, p, p, p, i32, i32, i32, p]

@@ -36,8 +36,9 @@ Determinism: randomized election timeouts use a per-instance hash of
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1434,7 +1435,8 @@ def _emit(cfg: BatchedConfig, ids: Ids, st: BatchedState):
 # The segments of one round, in execution order, with their labels
 # (the JAX package's named_scope strings): the eager round opens a
 # torch.profiler.record_function range of each label around its phase,
-# and tools/phaseprobe.py times each segment under the same names.
+# and the round tracer (roundtrace.py) marks the end of each under the
+# same names.
 ROUND_PHASE_SCOPES = (
     ("deliver", "raft_deliver"),
     ("tick", "raft_tick"),
@@ -1444,6 +1446,16 @@ ROUND_PHASE_SCOPES = (
     ("route", "raft_route"),
 )
 _SCOPE = dict(ROUND_PHASE_SCOPES)
+
+
+@contextlib.contextmanager
+def _phase(name: str, mark: Optional[Callable[[str], None]]):
+    """The phase `name` in a profiler range of its label, then, when
+    the round is traced, `mark(name)` (roundtrace.RoundTracer.mark)."""
+    with record_function(_SCOPE[name]):
+        yield
+    if mark is not None:
+        mark(name)
 
 
 def route_view(cfg: BatchedConfig, x: torch.Tensor) -> torch.Tensor:
@@ -1689,7 +1701,8 @@ with cfg.fleet_summary.)
 
     def step(st: BatchedState, inbox: MsgSlots, tick_mask, campaign_mask,
              propose_n, isolate, transfer_to: Optional[torch.Tensor] = None,
-             read_req: Optional[torch.Tensor] = None):
+             read_req: Optional[torch.Tensor] = None,
+             mark: Optional[Callable[[str], None]] = None):
         transfer_to = zero_i if transfer_to is None else transfer_to
         read_req = zero_b if read_req is None else read_req
         if cfg.narrow_lanes:
@@ -1702,19 +1715,20 @@ with cfg.fleet_summary.)
         iso = isolate.view(n, 1, 1)
         inbox = inbox._replace(valid=inbox.valid & ~iso)
         # Each phase in a profiler range of its label (host-side: a
-        # captured graph holds only the kernels).
-        with record_function(_SCOPE["deliver"]):
+        # captured graph holds only the kernels) and, traced, marked at
+        # its end on the device.
+        with _phase("deliver", mark):
             st, req_resps = _deliver_all(cfg, ids, st, inbox, senders,
                                          lane_skip)
-        with record_function(_SCOPE["tick"]):
+        with _phase("tick", mark):
             st = _tick(cfg, ids, st, tick_mask, campaign_mask)
         read_snap = (st.read_seq, st.read_index, st.read_ready)
-        with record_function(_SCOPE["control"]):
+        with _phase("control", mark):
             st = _control(cfg, ids, st, transfer_to, read_req)
         last_tick = st.last
-        with record_function(_SCOPE["propose"]):
+        with _phase("propose", mark):
             st = _propose(cfg, ids, st, propose_n)
-        with record_function(_SCOPE["emit"]):
+        with _phase("emit", mark):
             st, requests = _emit(cfg, ids, st)
         # Responses to requests from sender s land in out[s, k +
         # NUM_REQ_KINDS]; they route back by the same transpose.

@@ -1176,3 +1176,64 @@ def test_sweep_phase_at_a_small_size(dev, monkeypatch, tmp_path):
     assert sorted(paths) == ["sweep_2", "sweep_3", "sweep_4", "sweep_5"]
     assert any(" R=5 " in k for k in paths["sweep_3"]["forms"])
     assert all(v > 0 for p in paths.values() for v in p["launches"].values())
+
+
+# -- the round tracer on the card (batched/roundtrace.py) -------------------------
+
+
+def test_round_tracer_on_the_card(dev):
+    """An engine built for tracing beside one built without: both graph
+    variants captured in set-up and nothing in the stretch, the state
+    equal to the untraced twin's, marks that
+    partition the round, and each round's end mark on the host's clock
+    beside a CUDA event recorded after it."""
+    from etcd_tpu_torch.analysis import sentinels
+
+    cfg = bench_config(256)
+    engs = [MultiRaftEngine(cfg, device=dev, round_trace=t)
+            for t in (False, True)]
+    props = torch.zeros((cfg.num_instances,), dtype=torch.int32, device=dev)
+    props[::3] = 3
+    for eng in engs:
+        eng.campaign(range(0, cfg.num_instances, 3))
+        eng.run_rounds(4, tick=False)
+        eng.run_rounds(2, tick=True, propose_n=props)
+    assert [e.captures for e in engs] == [2, 2]
+    assert [c["traced"] for c in engs[1].capture_stats] == [False, True]
+    assert sentinels.compile_keys("round_capture") >= {
+        f"engine|{eng.cfg}|{t}" for t in (True, False, "untraced",
+                                           "traced")}
+    rt = engs[1].round_trace
+    torch.cuda.synchronize()
+    anchor = torch.cuda.Event(enable_timing=True)
+    anchor.record()
+    anchor_ns = time.perf_counter_ns()
+    rt.start()
+    events = []
+    for k in range(24):
+        engs[0].run_rounds(1, tick=k % 5 == 0, propose_n=props)
+        engs[1].run_rounds(1, tick=k % 5 == 0, propose_n=props)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    engs[1].run_rounds_pipelined(6, chunk=2, tick=False, propose_n=props)
+    engs[0].run_rounds_pipelined(6, chunk=2, tick=False, propose_n=props)
+    rt.stop()
+    assert [e.captures for e in engs] == [2, 2]
+    chip_smoke.assert_engines_equal(*engs, "traced against untraced")
+    s = rt.collect()
+    assert s.rounds.tolist() == list(range(30)) and s.rounds_dropped == 0
+    assert (np.diff(s.marks, axis=1) >= 0).all()
+    assert (np.diff(s.marks[:, 0]) > 0).all()
+    seg = s.segments_ms()
+    assert np.allclose(seg.sum(1), (s.marks[:, -1] - s.marks[:, 0]) / 1e6)
+    ends = s.host_marks()[:24, -1]
+    host = np.array([anchor_ns + anchor.elapsed_time(e) * 1e6
+                     for e in events])
+    diff_us = (host - ends) / 1e3
+    summary = s.summary()
+    print(f"round tracer: clock error {summary['clock_error_us']:.2f} us, "
+          f"event - end mark median {np.median(diff_us):.2f} us, range "
+          f"{diff_us.min():.2f}..{diff_us.max():.2f} us")
+    assert abs(float(np.median(diff_us))) < 50
+    assert summary["commit_rounds_p99"] == 2
+    assert summary["spans"] == 25 and summary["spans_dropped"] == 0

@@ -233,7 +233,7 @@ for m in ("etcd_tpu_torch.batched.rawnode", "etcd_tpu_torch.batched.msgblock",
           "etcd_tpu_torch.tools.bench_sweep",
           "etcd_tpu_torch.tools.frontier_sweep",
           "etcd_tpu_torch.tools.gpu_batch",
-          "etcd_tpu_torch.tools.phaseprobe",
+          "etcd_tpu_torch.batched.roundtrace",
           "etcd_tpu_torch.tools.dump_db", "etcd_tpu_torch.tools.dump_logs",
           "etcd_tpu_torch.tools.dump_metrics",
           "etcd_tpu_torch.tools.local_tester",

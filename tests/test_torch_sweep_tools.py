@@ -1,6 +1,6 @@
 """The port's sweep tools against the JAX package's: bench_sweep's
-BASELINE configs #2-#5, frontier_sweep's pipeline gate, gpu_batch and
-phaseprobe, on the CPU at tiny sizes.
+BASELINE configs #2-#5, frontier_sweep's pipeline gate and gpu_batch,
+on the CPU at tiny sizes.
 
 Each bench_sweep config runs through the port's own tool
 (``bench_sweep.run_config``) at G=4 and the same schedule drives the
@@ -32,8 +32,7 @@ from etcd_tpu.batched import BatchedConfig as JBatchedConfig
 from etcd_tpu.batched import MultiRaftEngine as JEngine
 from etcd_tpu_torch.batched import MultiRaftEngine
 from etcd_tpu_torch.batched import step as port_step
-from etcd_tpu_torch.tools import bench_sweep, frontier_sweep, gpu_batch, \
-    phaseprobe
+from etcd_tpu_torch.tools import bench_sweep, frontier_sweep, gpu_batch
 
 from .test_torch_state import assert_same
 
@@ -230,22 +229,10 @@ def test_gpu_batch_on_the_cpu(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["batch.json", "round_trace.json"]
 
 
-def test_phaseprobe_on_the_cpu():
-    result = phaseprobe.probe(groups=8, rounds=2, device="cpu")
-    names = [s["segment"] for s in result["segments"]]
-    assert names == [n for n, _ in port_step.ROUND_PHASE_SCOPES] + [
-        "pack_outbox"]
-    assert result["timer"].endswith("(cpu)")
-    assert abs(sum(s["pct_of_segments"] for s in result["segments"])
-               - 100) < 1e-6
-    assert "| deliver | raft_deliver |" in phaseprobe.table(result)
-
-
 TOOLS = {
     "bench_sweep": [],
     "frontier_sweep": ["--out", "{tmp}/frontier.json"],
     "gpu_batch": ["--out", "{tmp}/batch"],
-    "phaseprobe": ["--out", "{tmp}/probe.json"],
 }
 
 
